@@ -1,0 +1,491 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``shacira_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py [--prune-every N]
+
+Phases, each of which must pass (exit code 1 otherwise):
+
+1. build   -- compile every CUDA source of the port with nvcc (sm_90a) and
+              print the build time;
+2. kernels -- call each kernel's wrapper on the card at the shapes of the
+              lego training step and hold it against its plain PyTorch
+              version (max error relative to the largest sum <= 1e-5);
+              time kernel, plain version and the ``index_add_`` yardstick
+              with CUDA events and compute the least time the card could
+              take (bytes over 3.35 TB/s, or f32 adds over 67 TFLOP/s);
+              check that indices outside the table are dropped by both;
+3. parity  -- one small training step on the card against the same step of
+              the port on the CPU (plain versions), same params and draws;
+4. lego    -- read configs/nerf_lego.yaml with the port's config reader and
+              train at full lego width (4096 rays x 2048 steps, 1,048,576
+              compacted samples, 24 LODs at 2^19, hidden 128, bf16 head) on
+              an analytic scene built in memory, across one prune (4 steps
+              past it), then evaluate one view.  Launch counts are zeroed
+              just before and read just after; every kernel must have
+              launched;
+5. profile -- device time by step stage and host syncs per step under
+              torch.profiler, after the prune and before the first one.
+
+The second-to-last lines are the card's name and power limit and the
+kernels JSON; the last line is the result JSON.  Exits non-zero without
+printing a result when no CUDA device is present.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+F32_FLOPS = 67e12                  # H100 SXM, float32 outside tensor cores
+REL_TOL = 1e-5
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` launches, after warm-up."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(n_rows: int, f: int, table_rows: int):
+    """(bound_ms, bound_by) of a scatter-add: idx + vals read once, the
+    table written once; one f32 add per value."""
+    byts = n_rows * 4 + n_rows * f * 4 + table_rows * f * 4
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = n_rows * f / F32_FLOPS * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def check_scatter(name, idx, vals, table_rows, kernel, plain, reps):
+    """Kernel vs plain version vs index_add_ on one input; returns a row of
+    the kernels line (launches filled in later)."""
+    import torch
+    out_k = kernel(idx, vals, table_rows)
+    out_p = plain(idx, vals, table_rows)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    scale = float(out_p.abs().max())
+    rel = err / max(scale, 1e-30)
+    idx64 = idx.long()
+
+    def library():
+        return torch.zeros((table_rows, vals.shape[1]), device=vals.device
+                           ).index_add_(0, idx64, vals)
+
+    ms = time_ms(lambda: kernel(idx, vals, table_rows), reps)
+    plain_ms = time_ms(lambda: plain(idx, vals, table_rows), reps)
+    library_ms = time_ms(library, reps)
+    b_ms, b_by = bound(idx.shape[0], vals.shape[1], table_rows)
+    log(f'  {name}: N={idx.shape[0]} F={vals.shape[1]} T={table_rows} '
+        f'max_abs_err={err:.3e} max_rel_err={rel:.3e} kernel {ms:.4f} ms, '
+        f'plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, '
+        f'bound {b_ms:.4f} ms ({b_by})')
+    if not rel <= REL_TOL:
+        raise AssertionError(f'{name}: kernel disagrees with its plain '
+                             f'version (rel {rel:.3e} > {REL_TOL})')
+    return {'max_abs_err': err, 'max_rel_err': rel, 'ms': ms,
+            'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+            'library_ms': library_ms}
+
+
+def phase_kernels(dev):
+    """Both uses of the scatter kernel at the lego step's shapes."""
+    import torch
+    from shacira_tpu_torch.ops import hashgrid, scatter
+    from shacira_tpu_torch.ops.hashgrid import (
+        HashGridSpec, geometric_resolutions)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    spec = HashGridSpec(geometric_resolutions(16, 512, 24), 19, 3)
+    k = 1 << 20
+    pts = torch.rand((k, 3), generator=gen, device=dev) * 2 - 1
+    rows = {}
+
+    # (a) hash backward, one LOD: 8,388,608 updates into 2^19 x 1
+    idx_l, _ = hashgrid._lod_corner_indices_and_weights(
+        pts, spec.resolutions[-1], spec)
+    idx_l = idx_l.reshape(-1).to(torch.int32)
+    vals_l = torch.randn((idx_l.shape[0], 1), generator=gen, device=dev)
+    check_scatter('scatter_add one LOD', idx_l, vals_l, spec.lod_sizes[-1],
+                  scatter.scatter_add, scatter.scatter_add_plain, reps=20)
+    del idx_l, vals_l
+
+    # (a) hash backward as the main path launches it: 24 LODs fused,
+    # 201,326,592 updates into the 7,879,908-row table
+    gidx, _ = hashgrid._all_corners(pts, spec)
+    gidx = gidx.reshape(-1)
+    vals = torch.randn((gidx.shape[0], 1), generator=gen, device=dev)
+    rows['scatter_add'] = check_scatter(
+        'scatter_add 24 LODs fused', gidx, vals, spec.total_size,
+        scatter.scatter_add, scatter.scatter_add_plain, reps=5)
+    rows['scatter_add'].update(
+        source='shacira_tpu_torch/csrc/scatter.cu',
+        replaces='shacira_tpu/ops/pallas_scatter.py:29',
+        use='hash-grid backward, shacira_tpu/ops/hashgrid.py:471')
+    del gidx, vals
+
+    # (b) per-ray sums: 1,048,576 x 5 into 4096 rays, ids non-decreasing
+    # over the valid prefix and a zero-weight tail of slots carrying ray 0
+    rays, valid_rows = 4096, 900_000
+    ids = torch.sort(torch.randint(0, rays, (valid_rows,), generator=gen,
+                                   device=dev)).values
+    ids = torch.cat([ids, torch.zeros((k - valid_rows,), dtype=ids.dtype,
+                                      device=dev)]).to(torch.int32)
+    payload = torch.randn((k, 5), generator=gen, device=dev)
+    payload[valid_rows:] = 0.0     # invalid rows carry zero weight
+    rows['segment_sum'] = check_scatter(
+        'segment_sum', ids, payload, rays,
+        lambda i, v, t: scatter.segment_sum(i, v, t),
+        scatter.scatter_add_plain, reps=50)
+    rows['segment_sum'].update(
+        source='shacira_tpu_torch/csrc/scatter.cu',
+        replaces='shacira_tpu/ops/pallas_scatter.py:29',
+        use='per-ray sums, shacira_tpu/tracers/rf_tracer.py:325')
+    # backward of the segment sum is the gather ct[idx]
+    payload.requires_grad_(True)
+    ct = torch.randn((rays, 5), generator=gen, device=dev)
+    (grad,) = torch.autograd.grad(scatter.segment_sum(ids, payload, rays),
+                                  payload, ct)
+    gerr = float((grad - ct[ids.long()]).abs().max())
+    log(f'  segment_sum backward gather: max_abs_err={gerr:.3e}')
+    if gerr != 0.0:
+        raise AssertionError('segment_sum backward is not ct[idx]')
+
+    # indices outside [0, t) are dropped by the kernel and the plain version
+    t = 300
+    bad = torch.randint(-50, t + 50, (4096,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    v = torch.randn((4096, 3), generator=gen, device=dev)
+    want = scatter.scatter_add_plain(bad, v, t)
+    derr = float((scatter.scatter_add(bad, v, t) - want).abs().max())
+    log(f'  out-of-range indices dropped: max_abs_err={derr:.3e}')
+    if not derr <= REL_TOL * float(want.abs().max()):
+        raise AssertionError('kernel and plain version treat out-of-range '
+                             'indices differently')
+    return rows
+
+
+def sphere_scene(num_views: int, res: int):
+    """Analytic solid sphere (radius 0.5, normal-coloured, white
+    background) seen by cameras on a circle of radius 2.5."""
+    from shacira_tpu_torch.datasets.nerf_synthetic import (
+        MultiviewData, pinhole_rays)
+    h = w = res
+    fx = fy = res * 1.2
+    radius = 0.5
+    rgbs, origins, dirs = [], [], []
+    for v in range(num_views):
+        theta = 2 * np.pi * v / num_views
+        cam = np.asarray([2.5 * np.cos(theta), 0.8, 2.5 * np.sin(theta)],
+                         np.float32)
+        fwd = -cam / np.linalg.norm(cam)
+        right = np.cross(fwd, [0, 1, 0])
+        right /= np.linalg.norm(right)
+        up = np.cross(right, fwd)
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, up, -fwd, cam
+        o, d = pinhole_rays(c2w, h, w, fx, fy)
+        b = np.sum(o * d, -1)
+        disc = b * b - (np.sum(o * o, -1) - radius ** 2)
+        t = -b - np.sqrt(np.maximum(disc, 0))
+        n = (o + d * t[:, None]) / radius
+        rgbs.append(np.where((disc > 0)[:, None], 0.5 + 0.5 * n, 1.0
+                             ).astype(np.float32))
+        origins.append(o)
+        dirs.append(d)
+    # the camera circle's distance to the [-1,1]^3 cube bounds the march
+    return MultiviewData(rgb=np.stack(rgbs), rays_o=np.stack(origins),
+                         rays_d=np.stack(dirs),
+                         masks=np.ones((num_views, h * w, 1), bool),
+                         h=h, w=w, dist_min=0.8, dist_max=4.4)
+
+
+def phase_parity(dev):
+    """One small step on the card against the same step on the CPU."""
+    import torch
+    from shacira_tpu_torch import optim
+    from shacira_tpu_torch.models.grids.latent_grid import LatentGridConfig
+    from shacira_tpu_torch.models.nefs.nerf import NeuralRadianceFieldConfig
+    from shacira_tpu_torch.tracers.rf_tracer import RFTracerConfig
+    from shacira_tpu_torch.trainers.multiview_trainer import (
+        MultiviewTrainer, MultiviewTrainerConfig, StepDraws)
+    data = sphere_scene(4, 24)
+    grid = LatentGridConfig.from_geometric(
+        feature_dim=4, num_lods=6, min_grid_res=4, max_grid_res=64,
+        latent_dim=1, multiscale_type='cat', feature_std=0.02,
+        codebook_bitwidth=12, entropy_enabled=True, num_prob_layers=1
+    ).with_ldec(dict(ldec_std=0.1, use_shift=True, use_sga=True,
+                     diff_sampling=True))
+    mcfg = NeuralRadianceFieldConfig(grid=grid, hidden_dim=32,
+                                     view_embedder='positional',
+                                     blas_level=4, amp=False)
+    tcfg = RFTracerConfig(num_steps=128, max_samples=16384)
+    cfg = MultiviewTrainerConfig(epochs=10, prune_every=-1)
+    cpu = MultiviewTrainer(cfg, mcfg, tcfg, data, num_rays=256, device='cpu')
+    gpu = MultiviewTrainer(cfg, mcfg, tcfg, data, num_rays=256, device=dev)
+    gpu.set_params(optim.tree_map(lambda t: t.detach().clone().to(dev),
+                                  cpu.params))
+    draws = cpu.draw_step(use_sga=True)
+    ro, rd, gt = (torch.as_tensor(a[0]) for a in cpu._presample(1))
+    kw = dict(ent_lambda=1e-4, temperature=1.0, lr_ldec=1e-3, use_sga=True)
+    m_cpu = cpu.step(ro, rd, gt, draws, **kw)
+    m_gpu = gpu.step(ro.to(dev), rd.to(dev), gt.to(dev), StepDraws(
+        march_u=draws.march_u.to(dev), sga_u=draws.sga_u.to(dev),
+        noise=draws.noise.to(dev)), **kw)
+    loss_c, loss_g = float(m_cpu['loss']), float(m_gpu['loss'])
+    # Adam's first update is about +-lr per entry whatever the gradient's
+    # size, so compare its first moment mu = (1 - b1) * grad instead: per
+    # trained leaf, the largest difference over the leaf's largest entry
+    mu_c = dict(optim.tree_leaves_with_path(cpu.opt_state['mu']))
+    worst, worst_path = 0.0, None
+    for path, m in optim.tree_leaves_with_path(gpu.opt_state['mu']):
+        scale = float(mu_c[path].abs().max())
+        if scale == 0.0:           # frozen leaves keep zero moments
+            continue
+        rel = float((m.cpu() - mu_c[path]).abs().max()) / scale
+        if rel >= worst:
+            worst, worst_path = rel, '/'.join(path)
+    log(f'  small step card vs CPU: loss {loss_g:.7f} vs {loss_c:.7f}, '
+        f'Adam first moment max rel diff {worst:.3e} ({worst_path})')
+    # float atomics and other summation orders: rtol 1e-4 on the loss and
+    # 1e-3 of each leaf's largest gradient
+    if not (math.isfinite(loss_g) and abs(loss_g - loss_c) <= 1e-4 * abs(loss_c)):
+        raise AssertionError('card step loss disagrees with the CPU step')
+    if not worst <= 1e-3:
+        raise AssertionError('card step gradients disagree with the CPU step')
+
+
+SCENE_RES = 128           # analytic scene: 24 views of 128 x 128
+AFTER_PRUNE = 4           # training steps past the prune
+
+
+def phase_lego(dev, prune_every):
+    """Full-width lego-config training, configured through the app's code.
+
+    Steps run as the trainer runs them, one chunk after another with no
+    host sync between steps, so step times are means over blocks of steps,
+    the device drained at both ends: step 1 (warm-up), steps 2 ..
+    prune_every - 1, the step that ends in the prune, and the steps past
+    it."""
+    import torch
+    from shacira_tpu_torch import config as cfg_mod
+    from shacira_tpu_torch.apps.train_nerf import build_trainer
+    from shacira_tpu_torch.ops import scatter
+    argv = ['--config', os.path.join(ROOT, 'configs', 'nerf_lego.yaml'),
+            '--device', dev]
+    if prune_every is not None:
+        argv += ['--prune-every', str(prune_every)]
+        log(f'  prune_every lowered to {prune_every} through the CLI')
+    args = cfg_mod.parse_args(cfg_mod.build_nerf_parser(), argv)
+    if args.prune_every < 3:
+        raise ValueError('the lego phase needs prune_every >= 3')
+    data = sphere_scene(num_views=24, res=SCENE_RES)
+    trainer = build_trainer(args, data)
+    spec = trainer.model_cfg.grid.spec
+    log(f'  lego config: {spec.num_lods} LODs {spec.resolutions[0]}..'
+        f'{spec.resolutions[-1]}, table {spec.total_size} rows, '
+        f'{args.num_rays_sampled_per_img} rays x {args.num_steps} steps, '
+        f'max_samples {args.max_samples}, hidden {args.hidden_dim}, '
+        f'amp {not args.disable_amp}, prune_every {args.prune_every}, '
+        f'chunk_size {args.chunk_size}')
+    entries = []
+
+    def timed(n):
+        """Mean seconds per step over the next ``n`` training steps."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(num_iterations=n, log_fn=lambda e: entries.append(e)
+                      if 'iteration' in e else None)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n
+
+    torch.cuda.reset_peak_memory_stats()
+    scatter.reset_launches()
+    first_s = timed(1)
+    block_s = timed(args.prune_every - 2)
+    prune_s = timed(1)
+    after_s = timed(AFTER_PRUNE)
+    metrics = trainer.evaluate(view_indices=[0])
+    torch.cuda.synchronize()
+    launches = {'scatter_add': scatter.scatter_add.launches,
+                'segment_sum': scatter.segment_sum.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    first, before, pruned, last = entries[0], entries[-3], entries[-2], \
+        entries[-1]
+    result = {
+        'steps': trainer.iteration, 'first_step_ms': first_s * 1e3,
+        'mean_step_ms': block_s * 1e3,
+        'mean_step_ms_of_steps': [2, args.prune_every - 1],
+        'prune_step_ms': prune_s * 1e3,
+        'mean_step_ms_after_prune': after_s * 1e3,
+        'rays_per_s': args.num_rays_sampled_per_img / block_s,
+        'loss_first': first['loss'], 'loss_last': last['loss'],
+        'psnr_first': first['psnr'], 'psnr_last': last['psnr'],
+        'occupancy_before_prune': before['occupancy'],
+        'occupancy_after_prune': pruned['occupancy'],
+        'eval_psnr_view0': metrics['psnr'], 'peak_mem_gb': peak_gb,
+        'launches': launches}
+    log('  lego: ' + json.dumps(result))
+    if not all(math.isfinite(e['loss']) for e in entries):
+        raise AssertionError('non-finite training loss')
+    if not last['loss'] < first['loss']:
+        raise AssertionError('training loss did not fall')
+    if pruned['occupancy'] == before['occupancy']:
+        raise AssertionError('the prune left the occupancy unchanged')
+    if not math.isfinite(metrics['psnr']):
+        raise AssertionError('non-finite evaluation PSNR')
+    return result, launches, trainer, args, data
+
+
+RANGES = ('step/draws', 'step/decode', 'trace/march', 'trace/compact',
+          'field/encode', 'field/head', 'trace/integrate', 'step/rate_loss',
+          'step/adam')
+
+
+def phase_profile(trainer, steps: int, label: str, step_ms: float):
+    """Device time by step stage (the record_function ranges of the port)
+    and by kernel over ``steps`` training steps under torch.profiler.  The
+    backward runs on autograd's device thread, outside those ranges: it is
+    the remainder of the device's busy time.
+
+    The idle share compares the device's busy time per step with the mean
+    step time measured without the profiler (``step_ms``).  Host syncs
+    count the stream synchronisations (each host-to-device copy from
+    pageable memory makes one) and host-to-device copies per step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train(num_iterations=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels, ranges = {}, dict.fromkeys(RANGES, 0.0)
+    syncs = copies = 0
+    for e in prof.events():
+        if e.name.startswith('Memcpy HtoD'):
+            copies += 1
+        if e.device_type == DeviceType.CUDA:
+            if not (getattr(e, 'is_user_annotation', False)
+                    or e.name in ranges):
+                kernels[e.name] = (kernels.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us())
+        elif e.name in ranges:
+            ranges[e.name] += e.device_time_total
+        elif e.name == 'cudaStreamSynchronize':
+            syncs += 1
+    busy_ms = sum(kernels.values()) / 1e3 / steps
+    per_step = {k: v / 1e3 / steps for k, v in ranges.items()}
+    per_step['backward (remainder)'] = busy_ms - sum(per_step.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    out = {'profile': label, 'steps': steps,
+           'profiled_wall_ms_per_step': wall * 1e3 / steps,
+           'unprofiled_step_ms': step_ms,
+           'device_busy_ms_per_step': busy_ms,
+           'device_idle_share': 1.0 - busy_ms / step_ms,
+           'stream_syncs_per_step': syncs / steps,
+           'htod_copies_per_step': copies / steps,
+           'stage_device_ms_per_step': per_step,
+           'top_kernels_ms_per_step': [[n[:90], v / 1e3 / steps]
+                                       for n, v in top]}
+    log('  ' + json.dumps(out))
+    if busy_ms <= 0.0:
+        raise AssertionError('the profiler saw no device time')
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--prune-every', type=int, default=None,
+                    help='lower the config prune cadence (default: keep it)')
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device; nothing to run', file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from shacira_tpu_torch.device import resolve_device
+    from shacira_tpu_torch.kernels import build
+    dev = resolve_device('cuda')
+    log(f'torch {torch.__version__} cuda {torch.version.cuda} '
+        f'device {torch.cuda.get_device_name(0)}')
+
+    t0 = time.perf_counter()
+    for name in build.sources():
+        build.build(name)
+        log(f'phase build: {name} ({time.perf_counter() - t0:.1f} s)')
+    log('phase kernels:')
+    rows = phase_kernels(dev)
+    log('phase parity:')
+    phase_parity(dev)
+    log('phase lego:')
+    result, launches, trainer, lego_args, data = phase_lego(
+        'cuda', args.prune_every)
+    log('phase profile:')
+    phase_profile(trainer, 3, 'after the prune',
+                  result['mean_step_ms_after_prune'])
+    del trainer
+    from shacira_tpu_torch.apps.train_nerf import build_trainer
+    fresh = build_trainer(lego_args, data)
+    fresh.train(num_iterations=1)
+    phase_profile(fresh, 3, 'before the first prune',
+                  result['mean_step_ms'])
+    kernels = []
+    for name in ('scatter_add', 'segment_sum'):
+        row = rows[name]
+        kernels.append({'name': name, 'route': 'cuda',
+                        'source': row['source'], 'replaces': row['replaces'],
+                        'use': row['use'],
+                        'launches': launches[name],
+                        'max_abs_err': row['max_abs_err'],
+                        'max_rel_err': row['max_rel_err'], 'ms': row['ms'],
+                        'plain_ms': row['plain_ms'],
+                        'bound_ms': row['bound_ms'],
+                        'bound_by': row['bound_by'],
+                        'library_ms': row['library_ms']})
+    missing = [k['name'] for k in kernels if k['launches'] <= 0]
+    if missing:
+        raise AssertionError(f'kernels not launched on the main path: '
+                             f'{missing}')
+    log(card_line())
+    log(json.dumps({'kernels': kernels}))
+    log(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())
