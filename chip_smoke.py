@@ -5,26 +5,36 @@
 
 Phases, each of which must pass (exit code 1 otherwise):
 
-1. build   -- compile every CUDA source of the port with nvcc (sm_90a) and
-              print the build time;
-2. kernels -- call each kernel's wrapper on the card at the shapes of the
-              lego training step and hold it against its plain PyTorch
-              version (max error relative to the largest sum <= 1e-5);
-              time kernel, plain version and the ``index_add_`` yardstick
-              with CUDA events and compute the least time the card could
-              take (bytes over 3.35 TB/s, or f32 adds over 67 TFLOP/s);
-              check that indices outside the table are dropped by both;
-3. parity  -- one small training step on the card against the same step of
-              the port on the CPU (plain versions), same params and draws;
-4. lego    -- read configs/nerf_lego.yaml with the port's config reader and
-              train at full lego width (4096 rays x 2048 steps, 1,048,576
-              compacted samples, 24 LODs at 2^19, hidden 128, bf16 head) on
-              an analytic scene built in memory, across one prune (4 steps
-              past it), then evaluate one view.  Launch counts are zeroed
-              just before and read just after; every kernel must have
-              launched;
-5. profile -- device time by step stage and host syncs per step under
-              torch.profiler, after the prune and before the first one.
+1. build    -- compile every CUDA source of the port with nvcc (sm_90a), one
+               nvcc per source, all at once, and print the build time;
+2. kernels  -- call each kernel's wrapper on the card at the shapes of the
+               lego training step and hold it against its plain PyTorch
+               version (max error relative to the largest value <= 1e-5);
+               time kernel, plain version and, where one PyTorch call
+               computes the same function, that call, with CUDA events; and
+               compute the least time the card could take (bytes over 3.35
+               TB/s, or f32 operations over 67 TFLOP/s).  Scatter B1 (flat
+               hash backward, per-ray sums), paged gather B2 (train and
+               prune shapes) and paged scatter B3;
+3. parity   -- one small training step on the card against the same step of
+               the port on the CPU (plain versions), same params and draws,
+               on the flat layout and on the paged layout;
+4. lego     -- read configs/nerf_lego.yaml with the port's config reader and
+               train at full lego width (4096 rays x 2048 steps, 1,048,576
+               compacted samples, 24 LODs at 2^19, hidden 128, bf16 head) on
+               an analytic scene built in memory, across one prune (4 steps
+               past it), then evaluate one view.  Launch counts are zeroed
+               just before and read just after; B1(a) and B1(b) must have
+               launched;
+5. profile  -- device time by step stage and host syncs per step under
+               torch.profiler, after the prune and before the first one;
+6. paged    -- the same lego config on the paged layout (the flags of
+               ``PAGED_FLAGS``: segmented deferred march, segment grouping,
+               block-local encode through B2/B3, 262,144-row compaction),
+               trained across the prune and evaluated on one view, counts
+               zeroed before and read after: B1(b), B2 and B3 must have
+               launched, B2 also in the prune and in the evaluation; then
+               its profile as in phase 5.
 
 The second-to-last lines are the card's name and power limit and the
 kernels JSON; the last line is the result JSON.  Exits non-zero without
@@ -193,6 +203,194 @@ def phase_kernels(dev):
     return rows
 
 
+# the paged lego configuration: configs/nerf_lego.yaml plus these flags
+PAGED_FLAGS = ['--hash-layout', 'paged', '--page-res', '16',
+               '--segment-size', '16', '--coarse-level', '7',
+               '--seg-dilation', '2', '--seg-budget', '32768',
+               '--eval-seg-budget', '24576', '--group-segs-per-block', '8',
+               '--fine-mode', 'deferred', '--max-samples', '262144']
+SCENE_DIST = (0.8, 4.4)   # ray bounds of the analytic scene below
+
+
+def lego_args(dev, paged: bool, prune_every=None):
+    """The lego config as the app parses it (flat or paged layout)."""
+    from shacira_tpu_torch import config as cfg_mod
+    argv = ['--config', os.path.join(ROOT, 'configs', 'nerf_lego.yaml'),
+            '--device', dev] + (PAGED_FLAGS if paged else [])
+    if prune_every is not None:
+        argv += ['--prune-every', str(prune_every)]
+    return cfg_mod.parse_args(cfg_mod.build_nerf_parser(), argv)
+
+
+def _corner_pairs(coords_s, slot_valid, block_cell, static):
+    """Rows [L, NS, 8] int64 and weights [L, NS, 8] f32 (zero on pad and
+    invalid slots) of every corner of the block-local encode, from the plain
+    version's corner math, and the live-slot mask [NS]."""
+    import torch
+    from shacira_tpu_torch.ops import paged_hash as ph
+    bc, c3, live = ph._slot_cells(block_cell, coords_s.shape[0],
+                                  static.group_res)
+    keep = live & slot_valid
+    rows, wts = zip(*(ph._lod_rows(coords_s, bc, c3, lod, static)
+                      for lod in static.all_lods))
+    return (torch.stack(rows), torch.stack(wts) * keep[None, :, None],
+            keep)
+
+
+def paged_bound(coords_s, slot_valid, block_cell, static, ld, touched_rows,
+                table_rows_written=0):
+    """(bound_ms, bound_by) of B2 (``touched_rows`` table rows read, the
+    [NS, L, ld] output written) or B3 (the [NS, L, ld] gradient read and
+    ``table_rows_written`` rows written): coords, validity and block cells
+    read once; f32 operations 8 corners x (2 weight products + ld
+    multiply-adds) per live (slot, LOD)."""
+    ns, nl = coords_s.shape[0], len(static.all_lods)
+    n_live = int(slot_valid.sum())
+    byts = (ns * 12 + ns + block_cell.shape[0] * 4 + ns * nl * ld * 4
+            + (touched_rows + table_rows_written) * ld * 4)
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = n_live * nl * 8 * (2 + 2 * ld) / F32_FLOPS * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def _rel_err(got, want):
+    err = float((got - want).abs().max())
+    return err, err / max(float(want.abs().max()), 1e-30)
+
+
+def check_paged_gather(name, coords_s, slot_valid, block_cell, z, static,
+                       reps, plain_reps=2):
+    """B2 against its plain version, timed, with its byte bound."""
+    import torch
+    from shacira_tpu_torch.ops import paged_hash as ph
+    args = (coords_s, slot_valid, block_cell, z, static)
+    out_k = ph.paged_gather(*args)
+    out_p = ph.paged_gather_plain(*args)
+    torch.cuda.synchronize()
+    err, rel = _rel_err(out_k, out_p)
+    del out_k, out_p
+    rows, _, keep = _corner_pairs(coords_s, slot_valid, block_cell, static)
+    touched = torch.zeros((static.spec.total_size,), dtype=torch.bool,
+                          device=z.device)
+    touched[rows[:, keep].reshape(-1)] = True
+    n_touched = int(touched.sum())
+    del rows, touched
+    ms = time_ms(lambda: ph.paged_gather(*args), reps)
+    plain_ms = time_ms(lambda: ph.paged_gather_plain(*args), plain_reps)
+    b_ms, b_by = paged_bound(coords_s, slot_valid, block_cell, static,
+                             z.shape[-1], n_touched)
+    log(f'  {name}: slots={coords_s.shape[0]} (live '
+        f'{int(keep.sum())}) L={len(static.all_lods)} T='
+        f'{static.spec.total_size} rows read={n_touched} '
+        f'max_abs_err={err:.3e} max_rel_err={rel:.3e} kernel {ms:.4f} ms, '
+        f'plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})')
+    if not rel <= REL_TOL:
+        raise AssertionError(f'{name}: kernel disagrees with its plain '
+                             f'version (rel {rel:.3e} > {REL_TOL})')
+    return {'max_abs_err': err, 'max_rel_err': rel, 'ms': ms,
+            'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+            'library_ms': None}
+
+
+def check_paged_scatter(name, coords_s, slot_valid, block_cell, g, static,
+                        reps, plain_reps=2):
+    """B3 against its plain version and ``index_add_`` of the same
+    (row, value) pairs, timed, with its byte bound."""
+    import torch
+    from shacira_tpu_torch.ops import paged_hash as ph
+    args = (coords_s, slot_valid, block_cell, g, static)
+    out_k = ph.paged_scatter(*args)
+    out_p = ph.paged_scatter_plain(*args)
+    torch.cuda.synchronize()
+    err, rel = _rel_err(out_k, out_p)
+    del out_k, out_p
+    t, ld = static.spec.total_size, g.shape[-1]
+    rows, w, _ = _corner_pairs(coords_s, slot_valid, block_cell, static)
+    vals = (w[..., None] * g.permute(1, 0, 2)[:, :, None, :]).reshape(-1, ld)
+    rows = rows.reshape(-1)
+
+    def library():
+        return torch.zeros((t, ld), device=g.device).index_add_(0, rows,
+                                                                 vals)
+
+    lerr, _ = _rel_err(library(), ph.paged_scatter_plain(*args))
+    ms = time_ms(lambda: ph.paged_scatter(*args), reps)
+    plain_ms = time_ms(lambda: ph.paged_scatter_plain(*args), plain_reps)
+    library_ms = time_ms(library, reps)
+    b_ms, b_by = paged_bound(coords_s, slot_valid, block_cell, static, ld,
+                             0, table_rows_written=t)
+    log(f'  {name}: slots={coords_s.shape[0]} L={len(static.all_lods)} '
+        f'T={t} max_abs_err={err:.3e} max_rel_err={rel:.3e} kernel '
+        f'{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f}'
+        f' ms (its max_abs_err {lerr:.3e}), bound {b_ms:.4f} ms ({b_by})')
+    if not rel <= REL_TOL:
+        raise AssertionError(f'{name}: kernel disagrees with its plain '
+                             f'version (rel {rel:.3e} > {REL_TOL})')
+    return {'max_abs_err': err, 'max_rel_err': rel, 'ms': ms,
+            'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+            'library_ms': library_ms}
+
+
+def phase_paged_kernels(dev):
+    """B2 and B3 at the paged lego step's shapes: 24,576 spatially tight
+    segments of 16 samples grouped 8 to a block (458,752 slots), and B2
+    at the paged prune's 2,097,152 rows."""
+    import torch
+    from shacira_tpu_torch import config as cfg_mod
+    from shacira_tpu_torch.models.nefs import nerf as nerf_mod
+    from shacira_tpu_torch.ops import paged_hash as ph
+    args = lego_args('cuda', paged=True)
+    spec = cfg_mod.build_grid_config(args).spec
+    static = ph.default_static(spec, include_direct=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    k, g, spb = (args.eval_seg_budget, args.segment_size,
+                 args.group_segs_per_block)
+    # half a segment in [0,1] coords at the scene's ray bounds
+    half = (SCENE_DIST[1] - SCENE_DIST[0]) * (g / 2 + 1) / args.num_steps / 2
+    centers = torch.rand((k, 3), generator=gen, device=dev) * 0.96 + 0.02
+    d = torch.randn((k, 3), generator=gen, device=dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    t = torch.linspace(-half, half, g, device=dev)
+    pts = torch.clamp(centers[:, None] + d[:, None] * t[None, :, None], 0, 1)
+    live = torch.rand((k,), generator=gen, device=dev) < 0.8
+    grp = ph.group_segments(centers, live, spb, k // spb + static.n_cells,
+                            static.group_res)
+    s2s = grp['slotseg_to_seg']
+    sv = s2s < k
+    coords_s = torch.where(sv[:, None], (pts * 2 - 1).reshape(k, g * 3)[
+        torch.clamp(s2s, max=k - 1)], 0.0).reshape(-1, 3).contiguous()
+    slot_valid = sv[:, None].expand(-1, g).reshape(-1).contiguous()
+    z = torch.randn((spec.total_size, 1), generator=gen, device=dev)
+    rows = {'paged_gather': check_paged_gather(
+        'paged_gather (B2) train', coords_s, slot_valid, grp['block_cell'],
+        z, static, reps=20)}
+    gout = torch.randn((coords_s.shape[0], len(static.all_lods), 1),
+                       generator=gen, device=dev)
+    rows['paged_scatter'] = check_paged_scatter(
+        'paged_scatter (B3) train', coords_s, slot_valid,
+        grp['block_cell'], gout, static, reps=20)
+    del gout, coords_s, slot_valid
+    # the paged prune: one jittered point per cell of the 128^3 grid
+    idx3, bcell, _ = nerf_mod._prune_block_layout(128, static.group_res)
+    u = torch.rand((idx3.shape[0], 3), generator=gen, device=dev)
+    prune_pts = ((torch.as_tensor(idx3, device=dev) + u) / 128) * 2 - 1
+    rows['paged_gather']['prune'] = check_paged_gather(
+        'paged_gather (B2) prune', prune_pts,
+        torch.ones((idx3.shape[0],), dtype=torch.bool, device=dev),
+        torch.as_tensor(bcell, device=dev), z, static, reps=5, plain_reps=1)
+    rows['paged_gather'].update(
+        source='shacira_tpu_torch/csrc/paged_hash.cu',
+        replaces='shacira_tpu/ops/paged_hash.py:720',
+        use='paged encode forward, prune and eval, '
+            'shacira_tpu/ops/paged_hash.py:1163')
+    rows['paged_scatter'].update(
+        source='shacira_tpu_torch/csrc/paged_hash.cu',
+        replaces='shacira_tpu/ops/paged_hash.py:786',
+        use='paged encode backward, shacira_tpu/ops/paged_hash.py:1236')
+    return rows
+
+
 def sphere_scene(num_views: int, res: int):
     """Analytic solid sphere (radius 0.5, normal-coloured, white
     background) seen by cameras on a circle of radius 2.5."""
@@ -225,32 +423,51 @@ def sphere_scene(num_views: int, res: int):
     return MultiviewData(rgb=np.stack(rgbs), rays_o=np.stack(origins),
                          rays_d=np.stack(dirs),
                          masks=np.ones((num_views, h * w, 1), bool),
-                         h=h, w=w, dist_min=0.8, dist_max=4.4)
+                         h=h, w=w, dist_min=SCENE_DIST[0],
+                         dist_max=SCENE_DIST[1])
 
 
-def phase_parity(dev):
-    """One small step on the card against the same step on the CPU."""
-    import torch
-    from shacira_tpu_torch import optim
+def _parity_cfgs(paged: bool):
+    """Small flat or paged model and tracer configs for the parity step."""
     from shacira_tpu_torch.models.grids.latent_grid import LatentGridConfig
     from shacira_tpu_torch.models.nefs.nerf import NeuralRadianceFieldConfig
     from shacira_tpu_torch.tracers.rf_tracer import RFTracerConfig
-    from shacira_tpu_torch.trainers.multiview_trainer import (
-        MultiviewTrainer, MultiviewTrainerConfig, StepDraws)
-    data = sphere_scene(4, 24)
+    if paged:       # 3 direct LODs (17..40) and 2 paged ones (62, 97)
+        grid = dict(num_lods=5, min_grid_res=16, max_grid_res=96,
+                    codebook_bitwidth=17, hash_layout='paged', page_res=16)
+        tcfg = RFTracerConfig(num_steps=512, max_samples=4096,
+                              segment_size=8, seg_budget=2048,
+                              coarse_level=4, seg_dilation=2,
+                              eval_seg_budget=512, group_segs_per_block=4,
+                              fine_mode='deferred')
+    else:
+        grid = dict(num_lods=6, min_grid_res=4, max_grid_res=64,
+                    codebook_bitwidth=12)
+        tcfg = RFTracerConfig(num_steps=128, max_samples=16384)
     grid = LatentGridConfig.from_geometric(
-        feature_dim=4, num_lods=6, min_grid_res=4, max_grid_res=64,
-        latent_dim=1, multiscale_type='cat', feature_std=0.02,
-        codebook_bitwidth=12, entropy_enabled=True, num_prob_layers=1
+        feature_dim=4, latent_dim=1, multiscale_type='cat', feature_std=0.02,
+        entropy_enabled=True, num_prob_layers=1, **grid
     ).with_ldec(dict(ldec_std=0.1, use_shift=True, use_sga=True,
                      diff_sampling=True))
     mcfg = NeuralRadianceFieldConfig(grid=grid, hidden_dim=32,
                                      view_embedder='positional',
-                                     blas_level=4, amp=False)
-    tcfg = RFTracerConfig(num_steps=128, max_samples=16384)
+                                     blas_level=5 if paged else 4, amp=False)
+    return mcfg, tcfg
+
+
+def phase_parity(dev, paged: bool):
+    """One small step on the card against the same step on the CPU."""
+    import torch
+    from shacira_tpu_torch import optim
+    from shacira_tpu_torch.trainers.multiview_trainer import (
+        MultiviewTrainer, MultiviewTrainerConfig, StepDraws)
+    data = sphere_scene(4, 24)
+    mcfg, tcfg = _parity_cfgs(paged)
     cfg = MultiviewTrainerConfig(epochs=10, prune_every=-1)
     cpu = MultiviewTrainer(cfg, mcfg, tcfg, data, num_rays=256, device='cpu')
     gpu = MultiviewTrainer(cfg, mcfg, tcfg, data, num_rays=256, device=dev)
+    if gpu.use_paged != paged:
+        raise AssertionError('the parity step took the wrong trace path')
     gpu.set_params(optim.tree_map(lambda t: t.detach().clone().to(dev),
                                   cpu.params))
     draws = cpu.draw_step(use_sga=True)
@@ -273,8 +490,9 @@ def phase_parity(dev):
         rel = float((m.cpu() - mu_c[path]).abs().max()) / scale
         if rel >= worst:
             worst, worst_path = rel, '/'.join(path)
-    log(f'  small step card vs CPU: loss {loss_g:.7f} vs {loss_c:.7f}, '
-        f'Adam first moment max rel diff {worst:.3e} ({worst_path})')
+    log(f'  small {"paged" if paged else "flat"} step card vs CPU: loss '
+        f'{loss_g:.7f} vs {loss_c:.7f}, Adam first moment max rel diff '
+        f'{worst:.3e} ({worst_path})')
     # float atomics and other summation orders: rtol 1e-4 on the loss and
     # 1e-3 of each leaf's largest gradient
     if not (math.isfinite(loss_g) and abs(loss_g - loss_c) <= 1e-4 * abs(loss_c)):
@@ -287,8 +505,29 @@ SCENE_RES = 128           # analytic scene: 24 views of 128 x 128
 AFTER_PRUNE = 4           # training steps past the prune
 
 
-def phase_lego(dev, prune_every):
-    """Full-width lego-config training, configured through the app's code.
+def _launch_counts():
+    from shacira_tpu_torch.ops import paged_hash as ph
+    from shacira_tpu_torch.ops import scatter
+    return {'scatter_add': scatter.scatter_add.launches,
+            'segment_sum': scatter.segment_sum.launches,
+            'paged_gather': ph.paged_gather.launches,
+            'paged_scatter': ph.paged_scatter.launches}
+
+
+def _reset_launches():
+    from shacira_tpu_torch.ops import paged_hash as ph
+    from shacira_tpu_torch.ops import scatter
+    scatter.reset_launches()
+    ph.reset_launches()
+
+
+def _delta(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def phase_lego(dev, prune_every, paged: bool = False):
+    """Full-width lego-config training, configured through the app's code
+    (flat layout, or the paged one with ``PAGED_FLAGS``).
 
     Steps run as the trainer runs them, one chunk after another with no
     host sync between steps, so step times are means over blocks of steps,
@@ -296,26 +535,26 @@ def phase_lego(dev, prune_every):
     prune_every - 1, the step that ends in the prune, and the steps past
     it."""
     import torch
-    from shacira_tpu_torch import config as cfg_mod
     from shacira_tpu_torch.apps.train_nerf import build_trainer
-    from shacira_tpu_torch.ops import scatter
-    argv = ['--config', os.path.join(ROOT, 'configs', 'nerf_lego.yaml'),
-            '--device', dev]
     if prune_every is not None:
-        argv += ['--prune-every', str(prune_every)]
         log(f'  prune_every lowered to {prune_every} through the CLI')
-    args = cfg_mod.parse_args(cfg_mod.build_nerf_parser(), argv)
+    args = lego_args(dev, paged, prune_every)
     if args.prune_every < 3:
         raise ValueError('the lego phase needs prune_every >= 3')
     data = sphere_scene(num_views=24, res=SCENE_RES)
     trainer = build_trainer(args, data)
+    if trainer.use_paged != paged:
+        raise AssertionError('the lego trainer took the wrong trace path')
     spec = trainer.model_cfg.grid.spec
-    log(f'  lego config: {spec.num_lods} LODs {spec.resolutions[0]}..'
-        f'{spec.resolutions[-1]}, table {spec.total_size} rows, '
-        f'{args.num_rays_sampled_per_img} rays x {args.num_steps} steps, '
-        f'max_samples {args.max_samples}, hidden {args.hidden_dim}, '
-        f'amp {not args.disable_amp}, prune_every {args.prune_every}, '
-        f'chunk_size {args.chunk_size}')
+    log(f'  lego config ({spec.hash_layout}): {spec.num_lods} LODs '
+        f'{spec.resolutions[0]}..{spec.resolutions[-1]}, table '
+        f'{spec.total_size} rows, {args.num_rays_sampled_per_img} rays x '
+        f'{args.num_steps} steps, max_samples {args.max_samples}, hidden '
+        f'{args.hidden_dim}, amp {not args.disable_amp}, prune_every '
+        f'{args.prune_every}, chunk_size {args.chunk_size}'
+        + (f', segment {args.segment_size}, seg_budget {args.seg_budget}, '
+           f'eval_seg_budget {args.eval_seg_budget}, page_res '
+           f'{args.page_res}' if paged else ''))
     entries = []
 
     def timed(n):
@@ -328,20 +567,24 @@ def phase_lego(dev, prune_every):
         return (time.perf_counter() - t0) / n
 
     torch.cuda.reset_peak_memory_stats()
-    scatter.reset_launches()
+    _reset_launches()
     first_s = timed(1)
     block_s = timed(args.prune_every - 2)
+    before_prune = _launch_counts()
     prune_s = timed(1)
+    in_prune_step = _delta(_launch_counts(), before_prune)
     after_s = timed(AFTER_PRUNE)
+    before_eval = _launch_counts()
     metrics = trainer.evaluate(view_indices=[0])
     torch.cuda.synchronize()
-    launches = {'scatter_add': scatter.scatter_add.launches,
-                'segment_sum': scatter.segment_sum.launches}
+    launches = _launch_counts()
+    in_eval = _delta(launches, before_eval)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     first, before, pruned, last = entries[0], entries[-3], entries[-2], \
         entries[-1]
     result = {
+        'layout': spec.hash_layout,
         'steps': trainer.iteration, 'first_step_ms': first_s * 1e3,
         'mean_step_ms': block_s * 1e3,
         'mean_step_ms_of_steps': [2, args.prune_every - 1],
@@ -353,7 +596,8 @@ def phase_lego(dev, prune_every):
         'occupancy_before_prune': before['occupancy'],
         'occupancy_after_prune': pruned['occupancy'],
         'eval_psnr_view0': metrics['psnr'], 'peak_mem_gb': peak_gb,
-        'launches': launches}
+        'launches': launches, 'launches_in_prune_step': in_prune_step,
+        'launches_in_eval': in_eval}
     log('  lego: ' + json.dumps(result))
     if not all(math.isfinite(e['loss']) for e in entries):
         raise AssertionError('non-finite training loss')
@@ -363,11 +607,19 @@ def phase_lego(dev, prune_every):
         raise AssertionError('the prune left the occupancy unchanged')
     if not math.isfinite(metrics['psnr']):
         raise AssertionError('non-finite evaluation PSNR')
+    if paged:
+        # one forward of the step plus one in the prune; one per eval batch
+        if in_prune_step['paged_gather'] != 2:
+            raise AssertionError(f'B2 did not run in the prune: '
+                                 f'{in_prune_step}')
+        if in_eval['paged_gather'] < 1 or in_eval['paged_scatter'] != 0:
+            raise AssertionError(f'eval did not go through B2: {in_eval}')
     return result, launches, trainer, args, data
 
 
-RANGES = ('step/draws', 'step/decode', 'trace/march', 'trace/compact',
-          'field/encode', 'field/head', 'trace/integrate', 'step/rate_loss',
+RANGES = ('step/draws', 'step/decode', 'trace/march', 'trace/group',
+          'trace/compact', 'field/encode', 'field/paged_encode',
+          'field/finish', 'field/head', 'trace/integrate', 'step/rate_loss',
           'step/adam')
 
 
@@ -380,7 +632,8 @@ def phase_profile(trainer, steps: int, label: str, step_ms: float):
     The idle share compares the device's busy time per step with the mean
     step time measured without the profiler (``step_ms``).  Host syncs
     count the stream synchronisations (each host-to-device copy from
-    pageable memory makes one) and host-to-device copies per step."""
+    pageable memory makes one) and host-to-device copies per step; device
+    ops count the kernels and copies the card ran per step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -392,13 +645,14 @@ def phase_profile(trainer, steps: int, label: str, step_ms: float):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels, ranges = {}, dict.fromkeys(RANGES, 0.0)
-    syncs = copies = 0
+    syncs = copies = device_ops = 0
     for e in prof.events():
         if e.name.startswith('Memcpy HtoD'):
             copies += 1
         if e.device_type == DeviceType.CUDA:
             if not (getattr(e, 'is_user_annotation', False)
                     or e.name in ranges):
+                device_ops += 1
                 kernels[e.name] = (kernels.get(e.name, 0.0)
                                    + e.time_range.elapsed_us())
         elif e.name in ranges:
@@ -416,12 +670,16 @@ def phase_profile(trainer, steps: int, label: str, step_ms: float):
            'device_idle_share': 1.0 - busy_ms / step_ms,
            'stream_syncs_per_step': syncs / steps,
            'htod_copies_per_step': copies / steps,
+           'device_ops_per_step': device_ops / steps,
            'stage_device_ms_per_step': per_step,
            'top_kernels_ms_per_step': [[n[:90], v / 1e3 / steps]
                                        for n, v in top]}
     log('  ' + json.dumps(out))
     if busy_ms <= 0.0:
         raise AssertionError('the profiler saw no device time')
+    if syncs / steps > 1.0:
+        raise AssertionError(f'{syncs / steps} stream syncs per step: the '
+                             'step waits for the card more than once')
     return out
 
 
@@ -443,32 +701,45 @@ def main(argv=None) -> int:
         f'device {torch.cuda.get_device_name(0)}')
 
     t0 = time.perf_counter()
-    for name in build.sources():
-        build.build(name)
-        log(f'phase build: {name} ({time.perf_counter() - t0:.1f} s)')
+    build.build_all()
+    log(f'phase build: {", ".join(build.sources())} in parallel '
+        f'({time.perf_counter() - t0:.1f} s)')
     log('phase kernels:')
     rows = phase_kernels(dev)
+    rows.update(phase_paged_kernels(dev))
     log('phase parity:')
-    phase_parity(dev)
-    log('phase lego:')
-    result, launches, trainer, lego_args, data = phase_lego(
-        'cuda', args.prune_every)
-    log('phase profile:')
-    phase_profile(trainer, 3, 'after the prune',
-                  result['mean_step_ms_after_prune'])
-    del trainer
+    phase_parity(dev, paged=False)
+    phase_parity(dev, paged=True)
     from shacira_tpu_torch.apps.train_nerf import build_trainer
-    fresh = build_trainer(lego_args, data)
-    fresh.train(num_iterations=1)
-    phase_profile(fresh, 3, 'before the first prune',
-                  result['mean_step_ms'])
+    launches = {}
+    for paged in (False, True):
+        name = 'paged' if paged else 'lego'
+        log(f'phase {name}:')
+        result, launches[name], trainer, lego_args, data = phase_lego(
+            'cuda', args.prune_every, paged=paged)
+        log(f'phase {name} profile:')
+        phase_profile(trainer, 3, f'{name}, after the prune',
+                      result['mean_step_ms_after_prune'])
+        del trainer
+        fresh = build_trainer(lego_args, data)
+        fresh.train(num_iterations=1)
+        phase_profile(fresh, 3, f'{name}, before the first prune',
+                      result['mean_step_ms'])
+        del fresh
+        torch.cuda.empty_cache()
+    # each kernel's launches come from the path it serves: B1 from the flat
+    # lego run, B2 and B3 from the paged one (which also runs B1(b))
+    path_of = {'scatter_add': 'lego', 'segment_sum': 'lego',
+               'paged_gather': 'paged', 'paged_scatter': 'paged'}
     kernels = []
-    for name in ('scatter_add', 'segment_sum'):
+    for name, path in path_of.items():
         row = rows[name]
         kernels.append({'name': name, 'route': 'cuda',
                         'source': row['source'], 'replaces': row['replaces'],
                         'use': row['use'],
-                        'launches': launches[name],
+                        'launches': launches[path][name],
+                        'launches_by_path': {p: launches[p][name]
+                                             for p in launches},
                         'max_abs_err': row['max_abs_err'],
                         'max_rel_err': row['max_rel_err'], 'ms': row['ms'],
                         'plain_ms': row['plain_ms'],
@@ -476,6 +747,8 @@ def main(argv=None) -> int:
                         'bound_by': row['bound_by'],
                         'library_ms': row['library_ms']})
     missing = [k['name'] for k in kernels if k['launches'] <= 0]
+    if launches['paged']['segment_sum'] <= 0:
+        missing.append('segment_sum (paged path)')
     if missing:
         raise AssertionError(f'kernels not launched on the main path: '
                              f'{missing}')

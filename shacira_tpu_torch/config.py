@@ -230,13 +230,11 @@ def _not_ported(what: str, item: str):
 
 
 def build_grid_config(args, resolution_dim: int = 3):
-    """LatentGrid config from parsed args (flat 'xor' layout, single
+    """LatentGrid config from parsed args ('xor' or 'paged' layout, single
     decoder, geometric LODs)."""
     from shacira_tpu_torch.models.grids.latent_grid import LatentGridConfig
     if args.grid_type != 'LatentGrid':
         _not_ported(f'grid_type={args.grid_type!r}', 'Queue A item 12')
-    if args.hash_layout != 'xor':
-        _not_ported("hash_layout='paged'", 'Queue A item 8')
     if args.tree_type != 'geometric':
         _not_ported(f'tree_type={args.tree_type!r}', 'Queue A item 12')
     if args.ldecode_type != 'single':
@@ -248,6 +246,7 @@ def build_grid_config(args, resolution_dim: int = 3):
         resolution_dim=resolution_dim, feature_std=args.feature_std,
         feature_bias=args.feature_bias,
         codebook_bitwidth=args.codebook_bitwidth, init_grid=args.init_grid,
+        hash_layout=args.hash_layout, page_res=args.page_res,
         num_prob_layers=args.num_prob_layers, noise_freq=args.noise_freq,
         entropy_enabled=args.ldecode_enabled and (
             args.entropy_reg > 0 or args.entropy_reg_end > 0))
@@ -304,10 +303,16 @@ def build_nerf_trainer_config(args):
 
 
 def build_tracer_config(args):
+    """Tracer config; the modes not ported yet raise in
+    ``RFTracerConfig``, naming their ROADMAP item."""
     from shacira_tpu_torch.tracers.rf_tracer import RFTracerConfig
-    if args.eval_seg_budget > 0:
-        _not_ported('eval_seg_budget (paged trace)', 'Queue A item 9')
     return RFTracerConfig(
         raymarch_type=args.raymarch_type, num_steps=args.num_steps,
         bg_color=args.bg_color, max_intersections=args.max_intersections,
-        max_samples=args.max_samples, segment_size=args.segment_size)
+        max_samples=args.max_samples, segment_size=args.segment_size,
+        seg_budget=args.seg_budget, coarse_level=args.coarse_level,
+        seg_dilation=args.seg_dilation, eval_seg_budget=args.eval_seg_budget,
+        group_segs_per_block=args.group_segs_per_block,
+        group_res=args.page_res // 2, group_seg_size=args.group_seg_size,
+        fine_mode=args.fine_mode, term_tau=args.term_tau,
+        lean_stage1=args.lean_stage1, super_factor=args.super_factor)

@@ -15,6 +15,7 @@ import functools
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
@@ -58,6 +59,13 @@ def build(name: str) -> Path:
         raise RuntimeError(f'nvcc failed for {src.name}:\n{proc.stderr}')
     os.replace(tmp, lib)       # atomic: a concurrent build never sees half
     return lib
+
+
+def build_all() -> list:
+    """Compile every source under ``csrc/`` at once, one ``nvcc`` each."""
+    names = sources()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return list(pool.map(build, names))
 
 
 @functools.cache

@@ -1,9 +1,12 @@
 """LatentGrid -- SHACIRA's compressed multi-resolution latent hash grid.
 
-Port of the single-decoder, flat-layout part of
-``shacira_tpu/models/grids/latent_grid.py``: a concatenated multi-LOD latent
-table is quantized (STE/SGA), decoded by a learned decoder into hash-grid
-features, and a learned entropy model gives the rate loss.  Size accounting
+Port of the single-decoder part of ``shacira_tpu/models/grids/latent_grid.py``
+(flat and paged layouts): a concatenated multi-LOD latent table is
+quantized (STE/SGA), decoded by a learned decoder into hash-grid features,
+and a learned entropy model gives the rate loss.  On the paged layout the
+block-local LODs are interpolated as raw latents on segment-grouped rows
+(:func:`paged_zbar`, kernels B2/B3) and decoded after interpolation
+(:func:`paged_finish`), which is exact for an affine decoder.  Size accounting
 and the codestream wait for ROADMAP Queue A item 7 (later slice); the multi
 and hierarchical decoders for item 10.
 """
@@ -14,8 +17,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from shacira_tpu_torch.ops import paged_hash as ph
 from shacira_tpu_torch.ops.hashgrid import (
-    HashGridSpec, geometric_resolutions, hash_encode, hash_encode_affine)
+    PAGE_RES, HashGridSpec, geometric_resolutions, hash_encode,
+    hash_encode_affine)
 from shacira_tpu_torch.models.latent_decoders import (
     LatentDecoderConfig, latent_decoder_init, latent_decoder_apply,
     latent_decoder_is_affine, latent_decoder_affine_parts)
@@ -39,7 +44,8 @@ class LatentGridConfig:
     num_prob_layers: int = 4
     noise_freq: int = 1
     entropy_enabled: bool = False
-    hash_layout: str = 'xor'
+    hash_layout: str = 'xor'              # 'xor' | 'paged'
+    page_res: int = PAGE_RES              # paged layout: pages per axis
 
     def __post_init__(self):
         if self.ldecode_type != 'single':
@@ -56,7 +62,8 @@ class LatentGridConfig:
     @property
     def spec(self) -> HashGridSpec:
         return HashGridSpec(self.resolutions, self.codebook_bitwidth,
-                            self.resolution_dim, hash_layout=self.hash_layout)
+                            self.resolution_dim, hash_layout=self.hash_layout,
+                            page_res=self.page_res)
 
     @property
     def num_lods(self) -> int:
@@ -156,6 +163,60 @@ def interpolate(params: dict, cfg: LatentGridConfig, coords: torch.Tensor, *,
     else:
         out = feats.sum(dim=1)
     return out.reshape(*lead, out.shape[-1])
+
+
+def paged_zbar(cfg: LatentGridConfig, coords: torch.Tensor, grouping: dict,
+               seg_size: int, *, affine) -> torch.Tensor:
+    """Block-local latent interpolation on segment-ordered rows.
+
+    ``coords`` [K * seg_size, 3] are the rows of K segments; ``grouping``
+    (``ops/paged_hash.group_segments``) slots them into blocks sharing a
+    grouping cell.  Every direct and paged LOD is interpolated in one pass
+    of kernel B2 (backward B3) over the slot rows, and the result is
+    permuted back.  Returns raw latents [K * seg_size, Lk, ld] in ascending
+    LOD order."""
+    z = affine[0]
+    n2 = coords.shape[0]
+    k2 = n2 // seg_size
+    s2s = grouping['slotseg_to_seg']                       # [n_slotseg]
+    n_slotseg = s2s.shape[0]
+    rows = coords.reshape(k2, seg_size * 3)
+    sv_seg = s2s < k2
+    coords_s = torch.where(sv_seg[:, None],
+                           rows[torch.clamp(s2s, max=k2 - 1)], 0.0)
+    coords_s = coords_s.reshape(n_slotseg * seg_size, 3)
+    slot_valid = sv_seg[:, None].expand(-1, seg_size).reshape(-1)
+    static = ph.default_static(cfg.spec, include_direct=True)
+    zbar_s = ph.paged_interp_lods(coords_s, slot_valid,
+                                  grouping['block_cell'], z, static)
+    lk, ld = len(static.all_lods), z.shape[-1]
+    zbar_rows = ph.permute_rows(
+        zbar_s.reshape(n_slotseg, seg_size * lk * ld),
+        grouping['seg_to_slotseg'], s2s, k2)
+    return zbar_rows.reshape(n2, lk, ld)
+
+
+def paged_finish(cfg: LatentGridConfig, zbar: torch.Tensor,
+                 coords: torch.Tensor, *, affine) -> torch.Tensor:
+    """Decode the block-local latents into features on the (compacted) rows
+    (``zbar @ matrix + shift``), plus the plain affine encode of any hashed
+    LOD that cannot be paged (none in the lego spec).  Returns the
+    multiscale features [N, output_dim]."""
+    z, matrix, shift = affine
+    spec = cfg.spec
+    rest, direct, pag = ph.blocklocal_lods(spec)
+    kernel_lods = direct + pag
+    n = coords.shape[0]
+    zbar = zbar.reshape(n, len(kernel_lods), z.shape[-1])
+    feats = zbar @ matrix + shift                          # [N, Lk, F]
+    if rest:
+        feats_rest = hash_encode_affine(coords, z, matrix, shift, spec, rest)
+        parts = dict(zip(rest, feats_rest.unbind(1)))
+        parts.update(zip(kernel_lods, feats.unbind(1)))
+        feats = torch.stack([parts[l] for l in range(spec.num_lods)], dim=1)
+    if cfg.multiscale_type == 'cat':
+        return feats.reshape(n, -1)
+    return feats.sum(dim=1)
 
 
 def ent_loss(params: dict, cfg: LatentGridConfig, noise: torch.Tensor, *,

@@ -4,15 +4,20 @@ Port of the latent-grid part of ``shacira_tpu/models/nefs/nerf.py``: grid
 features -> density MLP (16 outputs, output bias[0] initialized to 1.0,
 density = relu(feats[..., 0])) -> colour MLP on [density feats, PE(-dir)]
 -> sigmoid.  With ``amp`` the MLPs run in bf16 (cast per layer, as the JAX
-package does) and return f32.  Pruning updates the dense occupancy grid.
-The octree, codebook and triplanar backbones wait for ROADMAP Queue A
-item 12; the paged prune for item 8.
+package does) and return f32.  Pruning updates the dense occupancy grid;
+on the paged layout its density query runs through the block-local kernels
+with a static grouping (:func:`_prune_density_paged`).  The paged encode
+splits in two (:func:`nerf_zbar` on segment rows, :func:`nerf_finish_feats`
+on the compacted rows).  The octree, codebook and triplanar backbones wait
+for ROADMAP Queue A item 12.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -21,6 +26,7 @@ from shacira_tpu_torch.models.embedders import (
     PositionalEmbedderConfig, positional_embed)
 from shacira_tpu_torch.models.grids import latent_grid as lg
 from shacira_tpu_torch.models.mlp import MLPConfig, mlp_apply, mlp_init
+from shacira_tpu_torch.ops import paged_hash as ph
 
 
 @dataclass(frozen=True)
@@ -115,6 +121,25 @@ def nerf_feats(params: dict, cfg: NeuralRadianceFieldConfig,
     return feats
 
 
+def nerf_zbar(cfg: NeuralRadianceFieldConfig, coords: torch.Tensor,
+              grouping: dict, seg_size: int, *, affine) -> torch.Tensor:
+    """Block-local LOD latents on segment-ordered rows (the paged encode's
+    first stage, ``latent_grid.paged_zbar``): [N, Lk * ld]."""
+    zb = lg.paged_zbar(cfg.grid, coords, grouping, seg_size, affine=affine)
+    return zb.reshape(zb.shape[0], -1)
+
+
+def nerf_finish_feats(cfg: NeuralRadianceFieldConfig, zbar: torch.Tensor,
+                      coords: torch.Tensor, *, affine) -> torch.Tensor:
+    """The paged encode's second stage on the compacted rows: decode the
+    latents (``latent_grid.paged_finish``) and append the positional
+    embedding."""
+    feats = lg.paged_finish(cfg.grid, zbar, coords, affine=affine)
+    if cfg.pos_embed_dim:
+        feats = torch.cat([feats, _pos_embed(cfg, coords)], dim=-1)
+    return feats
+
+
 def nerf_head(params: dict, cfg: NeuralRadianceFieldConfig,
               feats: torch.Tensor, ray_d: torch.Tensor):
     """MLP half of the field -> (rgb [..., 3], density [..., 1]), f32."""
@@ -156,14 +181,77 @@ def nerf_density(params: dict, cfg: NeuralRadianceFieldConfig,
     return density
 
 
+@functools.lru_cache(maxsize=None)
+def _prune_block_layout(res: int, g8: int = 8):
+    """Static slot layout of the paged prune: occupancy cells enumerated in
+    grouping-cell-major order (the ``res``-grid tiles the ``g8``^3 grouping
+    cells exactly), so every kernel block lies in one grouping cell by
+    construction.
+
+    Returns (idx3 [N, 3] cell indices in grouped order, block_cell [nb],
+    inv [N] with density_raster = density_grouped[inv])."""
+    assert res % g8 == 0, res
+    w = res // g8
+    b = 1
+    while b < 128 and w ** 3 % (2 * b) == 0:
+        b *= 2                                  # block rows (128 at res 128)
+    cells = np.arange(g8 ** 3)
+    cx, cy, cz = cells // (g8 * g8), (cells // g8) % g8, cells % g8
+    loc = np.arange(w ** 3)
+    lx, ly, lz = loc // (w * w), (loc // w) % w, loc % w
+    ix = (cx[:, None] * w + lx[None, :]).reshape(-1)
+    iy = (cy[:, None] * w + ly[None, :]).reshape(-1)
+    iz = (cz[:, None] * w + lz[None, :]).reshape(-1)
+    idx3 = np.stack([ix, iy, iz], axis=-1).astype(np.int32)
+    flat = (ix.astype(np.int64) * res + iy) * res + iz
+    inv = np.empty(res ** 3, np.int64)
+    inv[flat] = np.arange(res ** 3)
+    block_cell = np.repeat(cells.astype(np.int32), w ** 3 // b)
+    return idx3, block_cell, inv
+
+
+def _prune_density_paged(params: dict, cfg: NeuralRadianceFieldConfig,
+                         u: torch.Tensor) -> torch.Tensor:
+    """Eval-mode density at one jittered point per occupancy cell through
+    the block-local kernels.  ``u`` [res^3, 3] U(0,1) is in GROUPED cell
+    order (``_prune_block_layout``); the result is in raster order."""
+    res = cfg.occ_cfg.res
+    gr = ph.group_res_of(cfg.grid.spec.page_res)
+    idx3, block_cell, inv = _prune_block_layout(res, gr)
+    dev = u.device
+    n = res ** 3
+    pts = ((torch.as_tensor(idx3, device=dev) + u) / res) * 2.0 - 1.0
+    parts = lg.affine_parts(params['grid'], cfg.grid)       # eval/round mode
+    static = ph.default_static(cfg.grid.spec, include_direct=True)
+    zbar = ph.paged_interp_lods(
+        pts, torch.ones((n,), dtype=torch.bool, device=dev),
+        torch.as_tensor(block_cell, device=dev), parts[0], static)
+    feats = lg.paged_finish(cfg.grid, zbar, pts, affine=parts)
+    _, density = nerf_head(params, cfg, feats, torch.zeros_like(pts))
+    return density[..., 0][torch.as_tensor(inv, device=dev)]
+
+
+def _can_prune_paged(cfg: NeuralRadianceFieldConfig) -> bool:
+    res = cfg.occ_cfg.res
+    gr = ph.group_res_of(cfg.grid.spec.page_res)
+    return (cfg.grid.spec.hash_layout == 'paged'
+            and lg.supports_affine_fusion(cfg.grid)
+            and res % gr == 0 and res // gr >= 4)
+
+
 @torch.no_grad()
 def prune(params: dict, cfg: NeuralRadianceFieldConfig, occ_state: dict,
           u: torch.Tensor) -> dict:
     """One NGP pruning step: the field's eval-mode (rounded-latent) density
-    at one jittered point per cell (``u``: [num_cells, 3] U(0,1)), max with
-    the decayed tracked density, threshold."""
-    pts = occ.cell_centers_jittered(cfg.occ_cfg, u)
-    density = nerf_density(params, cfg, pts)[..., 0]
+    at one jittered point per cell (``u``: [num_cells, 3] U(0,1); raster
+    cell order, or grouped order when the paged prune applies, see
+    :func:`_can_prune_paged`), max with the decayed tracked density,
+    threshold."""
+    if _can_prune_paged(cfg):
+        density = _prune_density_paged(params, cfg, u)
+    else:
+        pts = occ.cell_centers_jittered(cfg.occ_cfg, u)
+        density = nerf_density(params, cfg, pts)[..., 0]
     return occ.prune_update(occ_state, cfg.occ_cfg, density,
                             density_decay=cfg.prune_density_decay,
                             min_density=cfg.prune_min_density)

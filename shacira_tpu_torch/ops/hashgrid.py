@@ -1,4 +1,4 @@
-"""Multi-resolution hash-grid encoding, flat ``'xor'`` layout.
+"""Multi-resolution hash-grid encoding, flat ``'xor'`` and ``'paged'`` layouts.
 
 Port of ``shacira_tpu/ops/hashgrid.py``.  Semantics match the JAX package
 (and through it the reference CUDA kernels) exactly:
@@ -16,7 +16,15 @@ bit-identical to JAX's uint32 arithmetic.
 Both encodes are ``torch.autograd.Function``s whose backward scatters into
 the concatenated ``[total_size, width]`` table gradient with ONE launch of
 the scatter kernel (``ops/scatter.py``), every LOD's indices offset by its
-``lod_first_idx``.  The paged layout waits for a later slice.
+``lod_first_idx``.
+
+The ``'paged'`` layout (``hash_layout='paged'``) places a hashed LOD's
+entries page by page: ``entry = page(cell) * E + fold_hash(xor_hash, E)``,
+with ``page`` the cell's coarse spatial bin at ``page_res`` bins per axis.
+The block-local encode of that layout is ``ops/paged_hash.py``; the plain
+encode here gives the same entries for every LOD, so it is the reference
+the block-local encode is tested against and the path of hashed LODs that
+cannot be paged.
 """
 from __future__ import annotations
 
@@ -32,6 +40,22 @@ from shacira_tpu_torch.ops.scatter import scatter_add
 # XOR-hash primes of the reference kernels.
 PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
+
+# 'paged' layout: coarse spatial bins (pages) per axis by default, and the
+# entries-per-page below which the hash folds its high bytes down before
+# the mask (with few entries the bare XOR-prime hash keeps only its low
+# bits, which skews collisions).
+PAGE_RES = 16
+SMALL_PAGE_ENTRIES = 32
+
+
+def fold_hash(acc, e: int):
+    """Mask an XOR-prime hash accumulator (uint32 values, held in int64 or
+    a Python int) to ``e`` entries, folding the high bytes down first when
+    the page is small."""
+    if e < SMALL_PAGE_ENTRIES:
+        acc = acc ^ (acc >> 8) ^ (acc >> 16) ^ (acc >> 24)
+    return acc & (e - 1)
 
 
 def _int32_wrap(x: int) -> int:
@@ -51,19 +75,43 @@ def use_direct_index(resolution: int, codebook_size: int, dim: int) -> bool:
     return True
 
 
+def paged_params(res: int, codebook_size: int, dim: int,
+                 page_res: int = PAGE_RES):
+    """(num_pages, entries_per_page) of a paged hashed LOD, or None when the
+    LOD cannot be paged (direct-indexed, table not divisible by the page
+    count, or fewer than 4 entries per page)."""
+    if use_direct_index(res, codebook_size, dim):
+        return None
+    p = page_res ** dim
+    if codebook_size % p or codebook_size < 4 * p:
+        return None
+    return p, codebook_size // p
+
+
+def _page_of_cell(cpos: torch.Tensor, res: int, dim: int,
+                  page_res: int = PAGE_RES) -> torch.Tensor:
+    """Coarse page id of integer cell coords ``[..., dim]`` (x-major):
+    ``page_axis = (cell * page_res) // res`` in integer arithmetic."""
+    pax = torch.div(cpos * page_res, res, rounding_mode='floor')
+    page = pax[..., 0]
+    for d in range(1, dim):
+        page = page * page_res + pax[..., d]
+    return page
+
+
 @dataclass(frozen=True)
 class HashGridSpec:
-    """Static layout of a concatenated multi-LOD hash table."""
+    """Static layout of a concatenated multi-LOD hash table.  ``'paged'``
+    hashes page-divisible LODs into ``page_res**dim`` spatial pages."""
     resolutions: Tuple[int, ...]
     codebook_bitwidth: int
     dim: int
     hash_layout: str = 'xor'
+    page_res: int = PAGE_RES
 
     def __post_init__(self):
-        if self.hash_layout != 'xor':
-            raise NotImplementedError(
-                f"hash_layout={self.hash_layout!r}: the paged layout is "
-                "ROADMAP Queue A item 8 (slice 2)")
+        if self.hash_layout not in ('xor', 'paged'):
+            raise ValueError(f'hash_layout={self.hash_layout!r}')
 
     @property
     def codebook_size(self) -> int:
@@ -149,15 +197,24 @@ def _lod_corner_indices_and_weights(coords: torch.Tensor, res: int,
         acc = (cpos[..., 0] * PRIMES[0]) & _U32
         for d in range(1, dim):
             acc = acc ^ ((cpos[..., d] * PRIMES[d]) & _U32)
-        idx = acc & (cs - 1)
+        paged = (spec.hash_layout == 'paged' and paged_params(
+            res, cs, dim, spec.page_res) is not None)
+        if paged:
+            _, e = paged_params(res, cs, dim, spec.page_res)
+            page = _page_of_cell(cpos, res, dim, spec.page_res)
+            idx = page * e + fold_hash(acc, e)
+        else:
+            idx = acc & (cs - 1)
     return idx, w
 
 
-def _all_corners(coords: torch.Tensor, spec: HashGridSpec):
+def _all_corners(coords: torch.Tensor, spec: HashGridSpec, lods=None):
     """Global corner indices [L, N, C] int32 (LOD-local index plus the LOD's
-    offset into the concatenated table) and weights [L, N, C] f32."""
+    offset into the concatenated table) and weights [L, N, C] f32, over
+    ``lods`` (default: every LOD)."""
     idx, w = [], []
-    for lod, res in enumerate(spec.resolutions):
+    for lod in (range(spec.num_lods) if lods is None else lods):
+        res = spec.resolutions[lod]
         i, wl = _lod_corner_indices_and_weights(coords, res, spec)
         idx.append((i + spec.lod_first_idx[lod]).to(torch.int32))
         w.append(wl)
@@ -202,13 +259,13 @@ def hash_encode(coords: torch.Tensor, codebook: torch.Tensor,
 
 class _HashEncodeAffine(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, coords, z, scale, shift, spec):
+    def forward(ctx, coords, z, scale, shift, spec, lods):
         ld = z.shape[-1]
         decoded = (z @ scale + shift).float()
         both = torch.cat([decoded, z.float()], dim=-1)    # [T, F + ld]
-        gidx, w = _all_corners(coords, spec)
+        gidx, w = _all_corners(coords, spec, lods)
         feats, zbar = [], []
-        for l in range(spec.num_lods):
+        for l in range(gidx.shape[0]):
             blend = _interp(both, gidx[l], w[l])          # [N, F + ld]
             feats.append(blend[:, :-ld])
             zbar.append(blend[:, -ld:])
@@ -232,16 +289,18 @@ class _HashEncodeAffine(torch.autograd.Function):
         grad_scale = torch.einsum('lnd,nlf->df', zbar, g)
         grad_shift = torch.einsum('lnc,nlf->f', w, g)[None]
         return (None, grad_z.to(z_dtype), grad_scale.to(scale_dtype),
-                grad_shift.to(shift_dtype), None)
+                grad_shift.to(shift_dtype), None, None)
 
 
 def hash_encode_affine(coords: torch.Tensor, z: torch.Tensor,
                        scale: torch.Tensor, shift: torch.Tensor,
-                       spec: HashGridSpec) -> torch.Tensor:
-    """Multi-LOD interpolation of ``z @ scale + shift`` -> [N, L, F].
+                       spec: HashGridSpec, lods=None) -> torch.Tensor:
+    """Multi-LOD interpolation of ``z @ scale + shift`` -> [N, L, F], over
+    the LOD indices ``lods`` (default: all) in the order given.
 
     The backward scatters latent-width rows (``ld`` columns instead of
     ``F``): ``grad_z[t] = sum w * (g @ scale^T)``, ``grad_scale =
     sum (w z) (x) g``, ``grad_shift = sum w g``.
     """
-    return _HashEncodeAffine.apply(coords, z, scale, shift, spec)
+    lods = None if lods is None else tuple(lods)
+    return _HashEncodeAffine.apply(coords, z, scale, shift, spec, lods)

@@ -1,4 +1,4 @@
-"""Multiview (NeRF) trainer: single device, latent grid, flat hash layout.
+"""Multiview (NeRF) trainer: single device, latent grid, flat or paged layout.
 
 Port of ``shacira_tpu/trainers/multiview_trainer.py``.  The JAX trainer runs
 chunks of steps under ``lax.scan``; here a Python loop runs one eager step
@@ -12,7 +12,12 @@ Semantics kept from the JAX package:
     divided (or multiplied) by the decoder's scale norm, the prob model at
     a fixed 1e-4, the decoder lr warmed up linearly;
   * an occupancy prune every ``prune_every`` iterations;
-  * float PSNR evaluation with rounded (eval-mode) latents.
+  * float PSNR evaluation with rounded (eval-mode) latents;
+  * on the paged layout with a segmented march (``use_paged``), the
+    deferred paged trace: grid encode on segment-grouped rows through
+    kernels B2/B3, the coarse culling grid refreshed at init and after
+    every prune, and evaluation through the same path with eval-mode
+    affine parts.
 
 Every random draw of a step (SGA uniforms, rate-loss noise, march jitter)
 is a :class:`StepDraws` argument of :meth:`MultiviewTrainer.step`; the
@@ -23,7 +28,7 @@ wait for later slices (ROADMAP Queue A).
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, Optional
 
 import numpy as np
@@ -39,6 +44,7 @@ from shacira_tpu_torch.models.grids import latent_grid as lg
 from shacira_tpu_torch.models.latent_decoders import scale_norm, sga_uniform
 from shacira_tpu_torch.models.nefs import nerf as nerf_mod
 from shacira_tpu_torch.models.nefs.nerf import NeuralRadianceFieldConfig
+from shacira_tpu_torch.ops import paged_hash as ph
 from shacira_tpu_torch.ops.image import psnr
 from shacira_tpu_torch.tracers import rf_tracer
 
@@ -84,6 +90,11 @@ class MultiviewTrainer:
                  val_dataset=None):
         self.cfg = cfg
         self.model_cfg = model_cfg
+        if model_cfg.grid.hash_layout == 'paged':
+            # segment grouping follows the grid's page geometry
+            tracer_cfg = replace(tracer_cfg,
+                                 group_res=ph.group_res_of(
+                                     model_cfg.grid.page_res))
         self.tracer_cfg = tracer_cfg
         self.dataset = dataset
         self.val_dataset = val_dataset
@@ -102,6 +113,24 @@ class MultiviewTrainer:
                                            self.device))
         self.noise = torch.zeros_like(self.params['grid']['codebook'])
         self.occ_state = occ.occupancy_init(model_cfg.occ_cfg, self.device)
+        self.use_paged = (gcfg.hash_layout == 'paged' and self.affine
+                          and tracer_cfg.segment_size > 0
+                          and tracer_cfg.eval_seg_budget > 0)
+        if tracer_cfg.segment_size > 0:
+            rf_tracer.validate_segment_cover(
+                tracer_cfg, model_cfg.occ_cfg, float(dataset.dist_min),
+                float(dataset.dist_max))
+            self._refresh_coarse()
+        if self.use_paged:
+            gss = tracer_cfg.group_seg_size or tracer_cfg.segment_size
+            if tracer_cfg.segment_size % gss:
+                raise ValueError(f'group_seg_size {gss} must divide '
+                                 f'segment_size {tracer_cfg.segment_size}')
+            # [-1,1] -> [0,1] halves distances; the grouping cell is keyed
+            # on the sub-segment's center sample: one spacing of slack
+            span = float(dataset.dist_max) - float(dataset.dist_min)
+            ph.validate_paged_cover(
+                gcfg.spec, span * (gss / 2 + 1) / tracer_cfg.num_steps / 2.0)
 
         self.iters_per_epoch = dataset.num_views
         self.entropy_reg_sched = DecayScheduler(
@@ -127,6 +156,31 @@ class MultiviewTrainer:
         self.params = params
         self.opt_state = (opt_state if opt_state is not None
                           else optim.adam_init(params))
+
+    def _refresh_coarse(self):
+        """Recompute the coarse culling grid of the segmented march (the
+        occupancy changes only at prune time)."""
+        base = {k: v for k, v in self.occ_state.items() if k != 'coarse'}
+        self.occ_state = dict(base, coarse=rf_tracer.coarse_dilated_occupancy(
+            base, self.model_cfg.occ_cfg, self.tracer_cfg))
+
+    def _encode_split(self, params: dict, parts):
+        """(zbar_fn, finish_fn, head_fn) of the paged trace."""
+        mcfg, tcfg = self.model_cfg, self.tracer_cfg
+        seg_group = tcfg.group_seg_size or tcfg.segment_size
+
+        def zbar_fn(coords, grouping):
+            return nerf_mod.nerf_zbar(mcfg, coords, grouping, seg_group,
+                                      affine=parts)
+
+        def finish_fn(zbar_c, coords_c):
+            return nerf_mod.nerf_finish_feats(mcfg, zbar_c, coords_c,
+                                              affine=parts)
+
+        def head_fn(feats, dirs):
+            return nerf_mod.nerf_head(params, mcfg, feats, dirs)
+
+        return zbar_fn, finish_fn, head_fn
 
     def draw_step(self, use_sga: bool, refresh_noise: bool = True
                   ) -> StepDraws:
@@ -174,8 +228,9 @@ class MultiviewTrainer:
 
         d = self.dataset
         rays = make_rays(rays_o, rays_d, d.dist_min, d.dist_max)
+        split = self._encode_split(p, parts) if self.use_paged else None
         rb = rf_tracer.trace(field_fn, self.occ_state, mcfg.occ_cfg, tcfg,
-                             rays, draws.march_u)
+                             rays, draws.march_u, encode_split=split)
         rgb_loss = torch.mean(torch.abs(rb['rgb'] - gt))
         loss = cfg.rgb_loss_weight * rgb_loss
         if self.entropy_enabled:
@@ -209,13 +264,16 @@ class MultiviewTrainer:
 
     @torch.no_grad()
     def prune(self, u: Optional[torch.Tensor] = None):
-        """Occupancy prune; ``u`` [num_cells, 3] U(0,1) cell jitter."""
+        """Occupancy prune; ``u`` [num_cells, 3] U(0,1) cell jitter (in
+        grouped cell order on the paged layout, see ``nerf.prune``)."""
         ocfg = self.model_cfg.occ_cfg
         if u is None:
             u = torch.rand((ocfg.num_cells, 3), generator=self.generator,
                            device=self.device)
         self.occ_state = nerf_mod.prune(self.params, self.model_cfg,
                                         self.occ_state, u)
+        if self.tracer_cfg.segment_size > 0:
+            self._refresh_coarse()
 
     # ------------------------------------------------------------------
     def _presample(self, n: int):
@@ -317,18 +375,26 @@ class MultiviewTrainer:
     def render_view(self, view_idx: int, ray_batch: int = 4096,
                     generator: Optional[torch.Generator] = None,
                     dataset=None, params=None) -> np.ndarray:
-        """Render one view in eval mode (rounded latents, decoded once)."""
+        """Render one view in eval mode (rounded latents, decoded once; on
+        the paged path the eval-mode affine parts, decoded after the
+        block-local interpolation)."""
         d = dataset if dataset is not None else self.dataset
         params = params if params is not None else self.params
         mcfg, tcfg = self.model_cfg, self.tracer_cfg
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(0)
-        decoded = lg.decode_codebook(params['grid'], mcfg.grid)
+        split = None
+        if self.use_paged:
+            parts = lg.affine_parts(params['grid'], mcfg.grid)
+            split = self._encode_split(params, parts)
+            field_fn = None
+        else:
+            decoded = lg.decode_codebook(params['grid'], mcfg.grid)
 
-        def field_fn(coords, dirs):
-            return nerf_mod.nerf_rgba(params, mcfg, coords, dirs,
-                                      decoded=decoded)
+            def field_fn(coords, dirs):
+                return nerf_mod.nerf_rgba(params, mcfg, coords, dirs,
+                                          decoded=decoded)
 
         npix = d.rgb.shape[1]
         out = np.zeros((npix, 3), np.float32)
@@ -345,7 +411,8 @@ class MultiviewTrainer:
                 rf_tracer.march_jitter_shape(tcfg, ray_batch),
                 generator=generator, device=self.device)
             rgb = rf_tracer.trace(field_fn, self.occ_state, mcfg.occ_cfg,
-                                  tcfg, rays, jitter)['rgb']
+                                  tcfg, rays, jitter,
+                                  encode_split=split)['rgb']
             out[s:e] = rgb[:e - s].cpu().numpy()
         return out.reshape(d.h, d.w, 3)
 

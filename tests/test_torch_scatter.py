@@ -9,13 +9,18 @@ the Pallas kernel adds in another order, so there 1e-6 of the largest sum
 import numpy as np
 import pytest
 
-jax = pytest.importorskip('jax')
 torch = pytest.importorskip('torch')
-import jax.numpy as jnp  # noqa: E402
-
-from shacira_tpu.ops import pallas_scatter as jps  # noqa: E402
 from shacira_tpu_torch.kernels import build  # noqa: E402
 from shacira_tpu_torch.ops import scatter  # noqa: E402
+
+try:        # the card's machine has no JAX: only the kernel tests run there
+    import jax
+    import jax.numpy as jnp
+    from shacira_tpu.ops import pallas_scatter as jps
+except ImportError:
+    jax = None
+needs_jax = pytest.mark.skipif(jax is None,
+                               reason='needs the JAX package (the reference)')
 
 ATOL = 1e-6
 
@@ -34,6 +39,7 @@ def _inputs(seed, n, t, f):
     return idx, vals
 
 
+@needs_jax
 @pytest.mark.parametrize('n,t,f', [(500, 37, 1), (700, 300, 5), (64, 1, 3)])
 def test_scatter_add_matches_jax(n, t, f):
     idx, vals = _inputs(0, n, t, f)
@@ -43,6 +49,7 @@ def test_scatter_add_matches_jax(n, t, f):
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
 
 
+@needs_jax
 @pytest.mark.parametrize('t,f', [(37, 1), (64, 5)])
 def test_scatter_add_matches_pallas_kernel_interpret(t, f):
     idx, vals = _inputs(1, 2048, t, f)
@@ -62,6 +69,7 @@ def _with_out_of_range(idx, t):
     return idx
 
 
+@needs_jax
 def test_out_of_range_indices_dropped_like_pallas_kernel():
     t, f = 37, 2
     idx, vals = _inputs(5, 2048, t, f)
@@ -74,6 +82,7 @@ def test_out_of_range_indices_dropped_like_pallas_kernel():
                                atol=ATOL * np.abs(want).max(), rtol=0)
 
 
+@needs_jax
 def test_segment_sum_and_grad_match_jax():
     rng = np.random.RandomState(2)
     rays = 16

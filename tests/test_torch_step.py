@@ -241,9 +241,9 @@ def test_config_rejects_unknown_keys_and_unported_options(tmp_path):
     with pytest.raises(ValueError):
         tconfig.parse_args(tconfig.build_nerf_parser(), ['--config', str(bad)])
     args = tconfig.parse_args(tconfig.build_nerf_parser(),
-                              ['--hash-layout', 'paged'])
+                              ['--segment-size', '16'])
     with pytest.raises(NotImplementedError):
-        tconfig.build_grid_config(args)
+        tconfig.build_tracer_config(args)
     args = tconfig.parse_args(tconfig.build_nerf_parser(),
                               ['--adaptive-budget', 'true'])
     with pytest.raises(NotImplementedError):
