@@ -237,17 +237,17 @@ def _corner_pairs(coords_s, slot_valid, block_cell, static):
             keep)
 
 
-def paged_bound(coords_s, slot_valid, block_cell, static, ld, touched_rows,
-                table_rows_written=0):
-    """(bound_ms, bound_by) of B2 (``touched_rows`` table rows read, the
-    [NS, L, ld] output written) or B3 (the [NS, L, ld] gradient read and
-    ``table_rows_written`` rows written): coords, validity and block cells
-    read once; f32 operations 8 corners x (2 weight products + ld
-    multiply-adds) per live (slot, LOD)."""
-    ns, nl = coords_s.shape[0], len(static.all_lods)
-    n_live = int(slot_valid.sum())
-    byts = (ns * 12 + ns + block_cell.shape[0] * 4 + ns * nl * ld * 4
-            + (touched_rows + table_rows_written) * ld * 4)
+def paged_bound(ns, n_live, nb, static, ld, slot_rows, table_rows):
+    """(bound_ms, bound_by) of B2 or B3: validity [ns] and block cells [nb]
+    read once, coords read for the ``n_live`` live slots only (the kernels
+    skip pad blocks and invalid slots before reading them), ``slot_rows``
+    rows of [L, ld] moved (B2 writes all ``ns``, B3 reads the live ones'
+    gradient) and ``table_rows`` rows of the table moved (B2 reads the rows
+    it touches, B3 writes the whole table); f32 operations 8 corners x
+    (2 weight products + ld multiply-adds) per live (slot, LOD)."""
+    nl = len(static.all_lods)
+    byts = (n_live * 12 + ns + nb * 4 + slot_rows * nl * ld * 4
+            + table_rows * ld * 4)
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
     t_ops = n_live * nl * 8 * (2 + 2 * ld) / F32_FLOPS * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
@@ -277,8 +277,9 @@ def check_paged_gather(name, coords_s, slot_valid, block_cell, z, static,
     del rows, touched
     ms = time_ms(lambda: ph.paged_gather(*args), reps)
     plain_ms = time_ms(lambda: ph.paged_gather_plain(*args), plain_reps)
-    b_ms, b_by = paged_bound(coords_s, slot_valid, block_cell, static,
-                             z.shape[-1], n_touched)
+    ns = coords_s.shape[0]
+    b_ms, b_by = paged_bound(ns, int(keep.sum()), block_cell.shape[0],
+                             static, z.shape[-1], ns, n_touched)
     log(f'  {name}: slots={coords_s.shape[0]} (live '
         f'{int(keep.sum())}) L={len(static.all_lods)} T='
         f'{static.spec.total_size} rows read={n_touched} '
@@ -305,7 +306,7 @@ def check_paged_scatter(name, coords_s, slot_valid, block_cell, g, static,
     err, rel = _rel_err(out_k, out_p)
     del out_k, out_p
     t, ld = static.spec.total_size, g.shape[-1]
-    rows, w, _ = _corner_pairs(coords_s, slot_valid, block_cell, static)
+    rows, w, keep = _corner_pairs(coords_s, slot_valid, block_cell, static)
     vals = (w[..., None] * g.permute(1, 0, 2)[:, :, None, :]).reshape(-1, ld)
     rows = rows.reshape(-1)
 
@@ -317,8 +318,9 @@ def check_paged_scatter(name, coords_s, slot_valid, block_cell, g, static,
     ms = time_ms(lambda: ph.paged_scatter(*args), reps)
     plain_ms = time_ms(lambda: ph.paged_scatter_plain(*args), plain_reps)
     library_ms = time_ms(library, reps)
-    b_ms, b_by = paged_bound(coords_s, slot_valid, block_cell, static, ld,
-                             0, table_rows_written=t)
+    n_live = int(keep.sum())
+    b_ms, b_by = paged_bound(coords_s.shape[0], n_live, block_cell.shape[0],
+                             static, ld, n_live, t)
     log(f'  {name}: slots={coords_s.shape[0]} L={len(static.all_lods)} '
         f'T={t} max_abs_err={err:.3e} max_rel_err={rel:.3e} kernel '
         f'{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f}'
@@ -341,7 +343,7 @@ def phase_paged_kernels(dev):
     from shacira_tpu_torch.ops import paged_hash as ph
     args = lego_args('cuda', paged=True)
     spec = cfg_mod.build_grid_config(args).spec
-    static = ph.default_static(spec, include_direct=True)
+    static = ph.default_static(spec)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     k, g, spb = (args.eval_seg_budget, args.segment_size,

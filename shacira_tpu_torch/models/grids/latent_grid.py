@@ -186,13 +186,13 @@ def paged_zbar(cfg: LatentGridConfig, coords: torch.Tensor, grouping: dict,
                            rows[torch.clamp(s2s, max=k2 - 1)], 0.0)
     coords_s = coords_s.reshape(n_slotseg * seg_size, 3)
     slot_valid = sv_seg[:, None].expand(-1, seg_size).reshape(-1)
-    static = ph.default_static(cfg.spec, include_direct=True)
+    static = ph.default_static(cfg.spec)
     zbar_s = ph.paged_interp_lods(coords_s, slot_valid,
                                   grouping['block_cell'], z, static)
     lk, ld = len(static.all_lods), z.shape[-1]
     zbar_rows = ph.permute_rows(
         zbar_s.reshape(n_slotseg, seg_size * lk * ld),
-        grouping['seg_to_slotseg'], s2s, k2)
+        grouping['seg_to_slotseg'], s2s)
     return zbar_rows.reshape(n2, lk, ld)
 
 

@@ -210,6 +210,14 @@ def _prune_block_layout(res: int, g8: int = 8):
     return idx3, block_cell, inv
 
 
+@functools.lru_cache(maxsize=None)
+def _prune_block_layout_on(res: int, g8: int, dev: torch.device):
+    """:func:`_prune_block_layout` as tensors on ``dev``, copied once so
+    that a prune makes no host-to-device copies."""
+    return tuple(torch.as_tensor(a, device=dev)
+                 for a in _prune_block_layout(res, g8))
+
+
 def _prune_density_paged(params: dict, cfg: NeuralRadianceFieldConfig,
                          u: torch.Tensor) -> torch.Tensor:
     """Eval-mode density at one jittered point per occupancy cell through
@@ -217,18 +225,18 @@ def _prune_density_paged(params: dict, cfg: NeuralRadianceFieldConfig,
     order (``_prune_block_layout``); the result is in raster order."""
     res = cfg.occ_cfg.res
     gr = ph.group_res_of(cfg.grid.spec.page_res)
-    idx3, block_cell, inv = _prune_block_layout(res, gr)
     dev = u.device
+    idx3, block_cell, inv = _prune_block_layout_on(res, gr, dev)
     n = res ** 3
-    pts = ((torch.as_tensor(idx3, device=dev) + u) / res) * 2.0 - 1.0
+    pts = ((idx3 + u) / res) * 2.0 - 1.0
     parts = lg.affine_parts(params['grid'], cfg.grid)       # eval/round mode
-    static = ph.default_static(cfg.grid.spec, include_direct=True)
+    static = ph.default_static(cfg.grid.spec)
     zbar = ph.paged_interp_lods(
         pts, torch.ones((n,), dtype=torch.bool, device=dev),
-        torch.as_tensor(block_cell, device=dev), parts[0], static)
+        block_cell, parts[0], static)
     feats = lg.paged_finish(cfg.grid, zbar, pts, affine=parts)
     _, density = nerf_head(params, cfg, feats, torch.zeros_like(pts))
-    return density[..., 0][torch.as_tensor(inv, device=dev)]
+    return density[..., 0][inv]
 
 
 def _can_prune_paged(cfg: NeuralRadianceFieldConfig) -> bool:

@@ -218,7 +218,7 @@ def group_segments(centers01: torch.Tensor, live: torch.Tensor,
 
 class _PermuteRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, perm, inv_perm, out_len):
+    def forward(ctx, x, perm, inv_perm):
         n = x.shape[0]
         ctx.save_for_backward(inv_perm)
         out = x[torch.clamp(perm, max=n - 1)]
@@ -230,15 +230,15 @@ class _PermuteRows(torch.autograd.Function):
         m = g.shape[0]
         gx = g[torch.clamp(inv_perm, max=m - 1)]
         gx = torch.where((inv_perm < m)[:, None], gx, torch.zeros_like(gx))
-        return gx, None, None, None
+        return gx, None, None
 
 
-def permute_rows(x: torch.Tensor, perm: torch.Tensor, inv_perm: torch.Tensor,
-                 out_len: int) -> torch.Tensor:
+def permute_rows(x: torch.Tensor, perm: torch.Tensor,
+                 inv_perm: torch.Tensor) -> torch.Tensor:
     """Differentiable row permutation with padding: ``out[i] = x[perm[i]]``
     (zeros where ``perm[i] >= len(x)``); the backward is a gather by
     ``inv_perm`` (the inverse over the valid range), not a scatter."""
-    return _PermuteRows.apply(x, perm, inv_perm, out_len)
+    return _PermuteRows.apply(x, perm, inv_perm)
 
 
 # ---------------------------------------------------------------------------
@@ -284,11 +284,10 @@ class PagedStatic:
                             self.spec.codebook_size, 3, self.spec.page_res)[1]
 
 
-def default_static(spec: HashGridSpec, include_direct: bool = False
-                   ) -> PagedStatic:
+def default_static(spec: HashGridSpec) -> PagedStatic:
+    """The block-local encode of every direct and paged LOD."""
     _, direct, pag = blocklocal_lods(spec)
-    return PagedStatic(spec=spec, lods=pag,
-                       direct_lods=direct if include_direct else ())
+    return PagedStatic(spec=spec, lods=pag, direct_lods=direct)
 
 
 # ---------------------------------------------------------------------------

@@ -354,7 +354,7 @@ def _trace_paged(zbar_fn, finish_fn, head_fn, seg2: dict, cfg: RFTracerConfig,
     with record_function('field/paged_encode'):
         zbar = zbar_fn(samples2.reshape(k2 * g, 3), grouping)
     with record_function('field/finish'):
-        zbar_c = ph.permute_rows(zbar, src_idx, inv_idx, cfg.max_samples)
+        zbar_c = ph.permute_rows(zbar, src_idx, inv_idx)
         feats_c = finish_fn(zbar_c, samples2.reshape(-1, 3)[src_idx])
     with record_function('field/head'):
         color, density = head_fn(feats_c,

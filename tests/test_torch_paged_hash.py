@@ -154,7 +154,7 @@ def test_permute_rows_forward_and_grad_match_jax():
     jy, jvjp = jax.vjp(lambda a: jph.permute_rows(
         a, jnp.asarray(perm), jnp.asarray(inv), 6), jnp.asarray(x))
     xt = torch.as_tensor(x).requires_grad_(True)
-    ty = tph.permute_rows(xt, torch.as_tensor(perm), torch.as_tensor(inv), 6)
+    ty = tph.permute_rows(xt, torch.as_tensor(perm), torch.as_tensor(inv))
     (tgrad,) = torch.autograd.grad(ty, xt, torch.as_tensor(w))
     np.testing.assert_array_equal(ty.detach().numpy(), np.asarray(jy))
     np.testing.assert_array_equal(tgrad.numpy(),
@@ -185,7 +185,7 @@ def _both(ld, page_res, use_bf16, seed=4):
     out_j, grad_j = (np.asarray(a) for a in fwd_bwd(jnp.asarray(z),
                                                      jnp.asarray(r)))
 
-    tstatic = tph.default_static(tspec, include_direct=True)
+    tstatic = tph.default_static(tspec)
     assert tstatic.all_lods == static.all_lods
     zt = torch.as_tensor(z).requires_grad_(True)
     out_t = tph.paged_interp_lods(torch.as_tensor(coords_s),
@@ -220,7 +220,7 @@ def test_plain_encode_equals_flat_encode_of_the_paged_spec():
     _, _, tg, coords_s, slot_valid = _slots(6, 16)
     z = torch.as_tensor(np.random.default_rng(6).normal(
         size=(tspec.total_size, 1)).astype(np.float32))
-    static = tph.default_static(tspec, include_direct=True)
+    static = tph.default_static(tspec)
     got = tph.paged_gather(torch.as_tensor(coords_s),
                            torch.as_tensor(slot_valid), tg['block_cell'], z,
                            static)
@@ -232,7 +232,7 @@ def test_plain_encode_equals_flat_encode_of_the_paged_spec():
 def _card_inputs(dev, page_res, ld):
     tspec = _tspec(page_res)
     rng, _, tg, coords_s, slot_valid = _slots(7, page_res)
-    static = tph.default_static(tspec, include_direct=True)
+    static = tph.default_static(tspec)
     z = torch.as_tensor(rng.normal(size=(tspec.total_size, ld)).astype(
         np.float32), device=dev)
     g = torch.as_tensor(rng.normal(size=(coords_s.shape[0], 4, ld)).astype(
