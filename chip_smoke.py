@@ -5,8 +5,9 @@
 
 Phases, each of which must pass (exit code 1 otherwise):
 
-1. build    -- compile every CUDA source of the port with nvcc (sm_90a), one
-               nvcc per source, all at once, and print the build time;
+1. build    -- compile every CUDA source of the port with nvcc (sm_90a),
+               and each again as its atomic-counting build, one nvcc per
+               library, all at once, and print the build time;
 2. kernels  -- call each kernel's wrapper on the card at the shapes of the
                lego training step and hold it against its plain PyTorch
                version (max error relative to the largest value <= 1e-5);
@@ -14,8 +15,13 @@ Phases, each of which must pass (exit code 1 otherwise):
                computes the same function, that call, with CUDA events; and
                compute the least time the card could take (bytes over 3.35
                TB/s, or f32 operations over 67 TFLOP/s).  Scatter B1 (flat
-               hash backward, per-ray sums), paged gather B2 (train and
-               prune shapes) and paged scatter B3;
+               hash backward on random points and on the step's
+               ray-ordered samples, per-ray sums), paged gather B2 (train
+               and prune shapes) and paged scatter B3.  For B1 and B3 also
+               count the updates (one global atomic each without merging),
+               the global atomics the merging kernel issued (counted on the
+               card by the same source built with -DCOUNT_GLOBAL_ATOMICS)
+               and the distinct addresses per tile or kernel block;
 3. parity   -- one small training step on the card against the same step of
                the port on the CPU (plain versions), same params and draws,
                on the flat layout and on the paged layout;
@@ -94,76 +100,130 @@ def bound(n_rows: int, f: int, table_rows: int):
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
-def check_scatter(name, idx, vals, table_rows, kernel, plain, reps):
-    """Kernel vs plain version vs index_add_ on one input; returns a row of
-    the kernels line (launches filled in later)."""
+def merge_counts(idx, vals, table_rows, tile=2048):
+    """Global atomics of one scatter input, counted on the card:
+    ``updates``, one per non-zero in-range (row, column) value (what an
+    unmerged scatter issues); ``atomics``, those the kernel issued, from
+    one launch of its counting build; and ``distinct_per_tile``, the
+    distinct (index, column) pairs per tile of ``tile`` rows, what merging
+    a whole tile could reach."""
     import torch
+    from shacira_tpu_torch.kernels.build import load, take_global_atomics
+    from shacira_tpu_torch.ops.scatter import _launch_scatter
+    lib = load('scatter', count_atomics=True)
+    take_global_atomics(lib)
+    _launch_scatter(idx, vals, table_rows, lib=lib)
+    out = {'updates': 0, 'atomics': take_global_atomics(lib),
+           'distinct_per_tile': 0}
+    n, f = vals.shape
+    inside = (idx >= 0) & (idx < table_rows)
+    tiles = torch.arange(n, device=vals.device) // tile * table_rows
+    for c in range(f):
+        keep = inside & (vals[:, c] != 0)
+        out['updates'] += int(keep.sum())
+        out['distinct_per_tile'] += int(torch.unique(
+            (tiles + idx.long())[keep]).numel())
+    return out
+
+
+def check_scatter(name, idx, vals, table_rows, kernel, plain, reps):
+    """Kernel (through its wrapper ``kernel``) vs plain version vs
+    index_add_ on one input; returns a row of the kernels line (launches
+    filled in later).  The kernel is timed through its launch helper: at
+    B1(b)'s ~30 us a launch, ``segment_sum``'s autograd wrapper takes more
+    host time than the kernel takes on the card."""
+    import torch
+    from shacira_tpu_torch.ops.scatter import _launch_scatter
     out_k = kernel(idx, vals, table_rows)
     out_p = plain(idx, vals, table_rows)
     torch.cuda.synchronize()
     err = float((out_k - out_p).abs().max())
     scale = float(out_p.abs().max())
     rel = err / max(scale, 1e-30)
+    del out_k, out_p
     idx64 = idx.long()
 
     def library():
         return torch.zeros((table_rows, vals.shape[1]), device=vals.device
                            ).index_add_(0, idx64, vals)
 
-    ms = time_ms(lambda: kernel(idx, vals, table_rows), reps)
+    ms = time_ms(lambda: _launch_scatter(idx, vals, table_rows), reps)
     plain_ms = time_ms(lambda: plain(idx, vals, table_rows), reps)
     library_ms = time_ms(library, reps)
+    del idx64
     b_ms, b_by = bound(idx.shape[0], vals.shape[1], table_rows)
+    counts = merge_counts(idx, vals, table_rows)
     log(f'  {name}: N={idx.shape[0]} F={vals.shape[1]} T={table_rows} '
         f'max_abs_err={err:.3e} max_rel_err={rel:.3e} kernel {ms:.4f} ms, '
         f'plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, '
-        f'bound {b_ms:.4f} ms ({b_by})')
+        f'bound {b_ms:.4f} ms ({b_by}); updates {counts["updates"]}, '
+        f'atomics {counts["atomics"]}, distinct per 2048-row tile '
+        f'{counts["distinct_per_tile"]}')
     if not rel <= REL_TOL:
         raise AssertionError(f'{name}: kernel disagrees with its plain '
                              f'version (rel {rel:.3e} > {REL_TOL})')
     return {'max_abs_err': err, 'max_rel_err': rel, 'ms': ms,
             'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
-            'library_ms': library_ms}
+            'library_ms': library_ms, **counts}
 
 
-def phase_kernels(dev):
-    """Both uses of the scatter kernel at the lego step's shapes."""
+def ray_ordered_points(dev, gen, n_rays=4096, steps=2048, budget=1 << 20):
+    """Sample coords [budget, 3] and validity [budget] of the flat lego
+    step before its first prune: ``n_rays`` rays of the analytic scene,
+    ``steps`` jittered samples each, every cell occupied, stride-compacted
+    to ``budget`` rows in (ray, depth) order."""
     import torch
-    from shacira_tpu_torch.ops import hashgrid, scatter
+    from shacira_tpu_torch.accel import occupancy as occ
+    from shacira_tpu_torch.core.rays import make_rays
+    from shacira_tpu_torch.tracers.rf_tracer import _stride_compact
+    data = sphere_scene(num_views=24, res=SCENE_RES)
+    o = torch.as_tensor(data.rays_o.reshape(-1, 3), device=dev)
+    d = torch.as_tensor(data.rays_d.reshape(-1, 3), device=dev)
+    pick = torch.randint(0, o.shape[0], (n_rays,), generator=gen, device=dev)
+    cfg = occ.OccupancyGridConfig()
+    m = occ.raymarch_ray(occ.occupancy_init(cfg, dev), cfg,
+                         make_rays(o[pick], d[pick], *SCENE_DIST), steps, gen)
+    src, valid, _ = _stride_compact(m['mask'].reshape(-1), budget)
+    return m['samples'].reshape(-1, 3)[src], valid
+
+
+def scatter_inputs(dev):
+    """B1's inputs at the lego step's shapes, name -> (idx int32 [N], vals
+    [N, F] f32, table rows):
+
+    * ``scatter_add_one_lod``: the hash backward of the finest LOD alone,
+      8,388,608 updates into 2^19 rows, on uniformly random points;
+    * ``scatter_add``: the hash backward as the flat step launches it, 24
+      LODs fused, 1,048,576 x 24 x 8 = 201,326,592 updates into the
+      7,879,908-row table, on uniformly random points;
+    * ``scatter_add_ray_ordered``: the same on the step's own sample order,
+      along rays in (ray, depth) order after the stride compaction;
+    * ``segment_sum``: per-ray sums, 1,048,576 x 5 into 4096 rays, ids
+      non-decreasing over the valid prefix and a zero-weight tail of slots
+      carrying ray 0."""
+    import torch
+    from shacira_tpu_torch.ops import hashgrid
     from shacira_tpu_torch.ops.hashgrid import (
         HashGridSpec, geometric_resolutions)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     spec = HashGridSpec(geometric_resolutions(16, 512, 24), 19, 3)
     k = 1 << 20
+    out = {}
     pts = torch.rand((k, 3), generator=gen, device=dev) * 2 - 1
-    rows = {}
-
-    # (a) hash backward, one LOD: 8,388,608 updates into 2^19 x 1
-    idx_l, _ = hashgrid._lod_corner_indices_and_weights(
+    idx, _ = hashgrid._lod_corner_indices_and_weights(
         pts, spec.resolutions[-1], spec)
-    idx_l = idx_l.reshape(-1).to(torch.int32)
-    vals_l = torch.randn((idx_l.shape[0], 1), generator=gen, device=dev)
-    check_scatter('scatter_add one LOD', idx_l, vals_l, spec.lod_sizes[-1],
-                  scatter.scatter_add, scatter.scatter_add_plain, reps=20)
-    del idx_l, vals_l
-
-    # (a) hash backward as the main path launches it: 24 LODs fused,
-    # 201,326,592 updates into the 7,879,908-row table
+    out['scatter_add_one_lod'] = (idx.reshape(-1).to(torch.int32), torch.randn(
+        (idx.numel(), 1), generator=gen, device=dev), spec.lod_sizes[-1])
     gidx, _ = hashgrid._all_corners(pts, spec)
-    gidx = gidx.reshape(-1)
-    vals = torch.randn((gidx.shape[0], 1), generator=gen, device=dev)
-    rows['scatter_add'] = check_scatter(
-        'scatter_add 24 LODs fused', gidx, vals, spec.total_size,
-        scatter.scatter_add, scatter.scatter_add_plain, reps=5)
-    rows['scatter_add'].update(
-        source='shacira_tpu_torch/csrc/scatter.cu',
-        replaces='shacira_tpu/ops/pallas_scatter.py:29',
-        use='hash-grid backward, shacira_tpu/ops/hashgrid.py:471')
-    del gidx, vals
-
-    # (b) per-ray sums: 1,048,576 x 5 into 4096 rays, ids non-decreasing
-    # over the valid prefix and a zero-weight tail of slots carrying ray 0
+    out['scatter_add'] = (gidx.reshape(-1), torch.randn(
+        (gidx.numel(), 1), generator=gen, device=dev), spec.total_size)
+    pts, valid = ray_ordered_points(dev, gen, budget=k)
+    gidx, _ = hashgrid._all_corners(pts, spec)
+    vals = torch.randn(gidx.shape + (1,), generator=gen, device=dev)
+    vals = vals * valid[None, :, None, None]   # invalid rows: zero weight
+    out['scatter_add_ray_ordered'] = (gidx.reshape(-1), vals.reshape(-1, 1),
+                                      spec.total_size)
     rays, valid_rows = 4096, 900_000
     ids = torch.sort(torch.randint(0, rays, (valid_rows,), generator=gen,
                                    device=dev)).values
@@ -171,14 +231,40 @@ def phase_kernels(dev):
                                       device=dev)]).to(torch.int32)
     payload = torch.randn((k, 5), generator=gen, device=dev)
     payload[valid_rows:] = 0.0     # invalid rows carry zero weight
+    out['segment_sum'] = (ids, payload, rays)
+    return out
+
+
+def phase_kernels(dev):
+    """Both uses of the scatter kernel at the lego step's shapes."""
+    import torch
+    from shacira_tpu_torch.ops import scatter
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rows = {}
+    use_a = 'hash-grid backward, shacira_tpu/ops/hashgrid.py:471'
+    inputs = scatter_inputs(dev)
+    check_scatter('scatter_add one LOD', *inputs.pop('scatter_add_one_lod'),
+                  scatter.scatter_add, scatter.scatter_add_plain, reps=20)
+    for name, label, use in (
+            ('scatter_add', 'scatter_add 24 LODs fused, random points',
+             use_a),
+            ('scatter_add_ray_ordered',
+             'scatter_add 24 LODs fused, ray-ordered samples', use_a)):
+        rows[name] = check_scatter(label, *inputs.pop(name),
+                                   scatter.scatter_add,
+                                   scatter.scatter_add_plain, reps=5)
+        rows[name].update(use=use)
+    ids, payload, rays = inputs.pop('segment_sum')
     rows['segment_sum'] = check_scatter(
         'segment_sum', ids, payload, rays,
         lambda i, v, t: scatter.segment_sum(i, v, t),
         scatter.scatter_add_plain, reps=50)
     rows['segment_sum'].update(
-        source='shacira_tpu_torch/csrc/scatter.cu',
-        replaces='shacira_tpu/ops/pallas_scatter.py:29',
         use='per-ray sums, shacira_tpu/tracers/rf_tracer.py:325')
+    for row in rows.values():
+        row.update(source='shacira_tpu_torch/csrc/scatter.cu',
+                   replaces='shacira_tpu/ops/pallas_scatter.py:29')
     # backward of the segment sum is the gather ct[idx]
     payload.requires_grad_(True)
     ct = torch.randn((rays, 5), generator=gen, device=dev)
@@ -318,28 +404,61 @@ def check_paged_scatter(name, coords_s, slot_valid, block_cell, g, static,
     ms = time_ms(lambda: ph.paged_scatter(*args), reps)
     plain_ms = time_ms(lambda: ph.paged_scatter_plain(*args), plain_reps)
     library_ms = time_ms(library, reps)
+    del rows, w, vals
     n_live = int(keep.sum())
     b_ms, b_by = paged_bound(coords_s.shape[0], n_live, block_cell.shape[0],
                              static, ld, n_live, t)
+    counts = paged_merge_counts(*args)
     log(f'  {name}: slots={coords_s.shape[0]} L={len(static.all_lods)} '
         f'T={t} max_abs_err={err:.3e} max_rel_err={rel:.3e} kernel '
         f'{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f}'
-        f' ms (its max_abs_err {lerr:.3e}), bound {b_ms:.4f} ms ({b_by})')
+        f' ms (its max_abs_err {lerr:.3e}), bound {b_ms:.4f} ms ({b_by}); '
+        f'updates {counts["updates"]}, atomics {counts["atomics"]}, '
+        f'distinct per (block, LOD) {counts["distinct_per_tile"]}')
     if not rel <= REL_TOL:
         raise AssertionError(f'{name}: kernel disagrees with its plain '
                              f'version (rel {rel:.3e} > {REL_TOL})')
     return {'max_abs_err': err, 'max_rel_err': rel, 'ms': ms,
             'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
-            'library_ms': library_ms}
+            'library_ms': library_ms, **counts}
 
 
-def phase_paged_kernels(dev):
-    """B2 and B3 at the paged lego step's shapes: 24,576 spatially tight
-    segments of 16 samples grouped 8 to a block (458,752 slots), and B2
-    at the paged prune's 2,097,152 rows."""
+def paged_merge_counts(coords_s, slot_valid, block_cell, g, static):
+    """Global atomics of B3 on one input, counted on the card: ``updates``,
+    one per non-zero w * g of a live (slot, LOD, corner, column) (what an
+    unmerged scatter issues); ``atomics``, those the kernel issued, from
+    one launch of its counting build; and ``distinct_per_tile``, the
+    distinct (kernel block, LOD, row, column) among the updates, what
+    merging a whole kernel block could reach."""
+    import torch
+    from shacira_tpu_torch.kernels.build import load, take_global_atomics
+    from shacira_tpu_torch.ops import paged_hash as ph
+    lib = load('paged_hash', count_atomics=True)
+    take_global_atomics(lib)
+    ph._launch_scatter(coords_s, slot_valid, block_cell, g, static, lib=lib)
+    out = {'updates': 0, 'atomics': take_global_atomics(lib),
+           'distinct_per_tile': 0}
+    ns, ld = coords_s.shape[0], g.shape[-1]
+    bc, c3, live = ph._slot_cells(block_cell, ns, static.group_res)
+    keep = live & slot_valid
+    block = torch.arange(ns, device=g.device) // (ns // block_cell.shape[0])
+    for li, lod in enumerate(static.all_lods):
+        rows, w = ph._lod_rows(coords_s.float(), bc, c3, lod, static)
+        key = block[:, None] * static.spec.total_size + rows
+        for d in range(ld):
+            nz = keep[:, None] & (w * g[:, li, d:d + 1].float() != 0)
+            out['updates'] += int(nz.sum())
+            out['distinct_per_tile'] += int(torch.unique(key[nz]).numel())
+    return out
+
+
+def paged_inputs(dev):
+    """B2's and B3's inputs at the paged lego step's shapes: 24,576
+    spatially tight segments of 16 samples grouped 8 to a block (458,752
+    slots): coords_s, slot_valid, block_cell, a table z [T, 1], an output
+    gradient g [458,752, 24, 1] and the static encode description."""
     import torch
     from shacira_tpu_torch import config as cfg_mod
-    from shacira_tpu_torch.models.nefs import nerf as nerf_mod
     from shacira_tpu_torch.ops import paged_hash as ph
     args = lego_args('cuda', paged=True)
     spec = cfg_mod.build_grid_config(args).spec
@@ -364,15 +483,28 @@ def phase_paged_kernels(dev):
         torch.clamp(s2s, max=k - 1)], 0.0).reshape(-1, 3).contiguous()
     slot_valid = sv[:, None].expand(-1, g).reshape(-1).contiguous()
     z = torch.randn((spec.total_size, 1), generator=gen, device=dev)
-    rows = {'paged_gather': check_paged_gather(
-        'paged_gather (B2) train', coords_s, slot_valid, grp['block_cell'],
-        z, static, reps=20)}
     gout = torch.randn((coords_s.shape[0], len(static.all_lods), 1),
                        generator=gen, device=dev)
+    return {'coords_s': coords_s, 'slot_valid': slot_valid,
+            'block_cell': grp['block_cell'], 'z': z, 'g': gout,
+            'static': static}
+
+
+def phase_paged_kernels(dev):
+    """B2 and B3 at the paged lego step's shapes (:func:`paged_inputs`),
+    and B2 at the paged prune's 2,097,152 rows."""
+    import torch
+    from shacira_tpu_torch.models.nefs import nerf as nerf_mod
+    inp = paged_inputs(dev)
+    slots = (inp['coords_s'], inp['slot_valid'], inp['block_cell'])
+    z, static = inp['z'], inp['static']
+    rows = {'paged_gather': check_paged_gather(
+        'paged_gather (B2) train', *slots, z, static, reps=20)}
     rows['paged_scatter'] = check_paged_scatter(
-        'paged_scatter (B3) train', coords_s, slot_valid,
-        grp['block_cell'], gout, static, reps=20)
-    del gout, coords_s, slot_valid
+        'paged_scatter (B3) train', *slots, inp['g'], static, reps=20)
+    del inp, slots
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
     # the paged prune: one jittered point per cell of the 128^3 grid
     idx3, bcell, _ = nerf_mod._prune_block_layout(128, static.group_res)
     u = torch.rand((idx3.shape[0], 3), generator=gen, device=dev)
@@ -704,8 +836,8 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     build.build_all()
-    log(f'phase build: {", ".join(build.sources())} in parallel '
-        f'({time.perf_counter() - t0:.1f} s)')
+    log(f'phase build: {", ".join(build.sources())} and their atomic-'
+        f'counting builds in parallel ({time.perf_counter() - t0:.1f} s)')
     log('phase kernels:')
     rows = phase_kernels(dev)
     rows.update(phase_paged_kernels(dev))
@@ -731,23 +863,30 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     # each kernel's launches come from the path it serves: B1 from the flat
     # lego run, B2 and B3 from the paged one (which also runs B1(b))
-    path_of = {'scatter_add': 'lego', 'segment_sum': 'lego',
-               'paged_gather': 'paged', 'paged_scatter': 'paged'}
+    # (row name, wrapper whose launches it reports, path); the ray-ordered
+    # row times the same wrapper as scatter_add on the step's sample order
+    path_of = (('scatter_add', 'scatter_add', 'lego'),
+               ('scatter_add_ray_ordered', 'scatter_add', 'lego'),
+               ('segment_sum', 'segment_sum', 'lego'),
+               ('paged_gather', 'paged_gather', 'paged'),
+               ('paged_scatter', 'paged_scatter', 'paged'))
+    counts = ('updates', 'atomics', 'distinct_per_tile')
     kernels = []
-    for name, path in path_of.items():
+    for name, wrapper, path in path_of:
         row = rows[name]
         kernels.append({'name': name, 'route': 'cuda',
                         'source': row['source'], 'replaces': row['replaces'],
                         'use': row['use'],
-                        'launches': launches[path][name],
-                        'launches_by_path': {p: launches[p][name]
+                        'launches': launches[path][wrapper],
+                        'launches_by_path': {p: launches[p][wrapper]
                                              for p in launches},
                         'max_abs_err': row['max_abs_err'],
                         'max_rel_err': row['max_rel_err'], 'ms': row['ms'],
                         'plain_ms': row['plain_ms'],
                         'bound_ms': row['bound_ms'],
                         'bound_by': row['bound_by'],
-                        'library_ms': row['library_ms']})
+                        'library_ms': row['library_ms'],
+                        **{c: row[c] for c in counts if c in row}})
     missing = [k['name'] for k in kernels if k['launches'] <= 0]
     if launches['paged']['segment_sum'] <= 0:
         missing.append('segment_sum (paged path)')

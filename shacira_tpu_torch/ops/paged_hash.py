@@ -14,14 +14,17 @@ written for the TPU (one-hot MXU matmuls over VMEM-resident windows):
   latents at every slot row for every direct and paged LOD;
 * B3, ``_scatter_kernel`` -- its backward: the table gradient.
 
-Here they are the CUDA kernels ``csrc/paged_hash.cu`` (``paged_gather`` and
-``paged_scatter``), which recompute each (slot, LOD)'s eight corner rows
-from the coords, read the ``[T, ld]`` table directly and scatter the
-gradient with float atomics.  The TPU's staging of table windows and the
-fold of window partials back into the table have no counterpart.  Beside
-each kernel is a plain PyTorch version of the same function, clipping
-included; a CPU tensor takes it, a CUDA tensor launches the kernel or
-raises.  Each wrapper counts its launches (``paged_gather.launches``,
+Here they are the CUDA kernels ``csrc/paged_hash.cu``.  ``paged_gather``
+recomputes each (slot, LOD)'s eight corner rows from the coords and reads
+the ``[T, ld]`` table directly.  In ``paged_scatter`` one thread walks a
+chain of ``CHAIN`` consecutive slots at one LOD and carries each corner's
+update into the next slot's corner of the same row in registers before its
+float atomics (:func:`chain_updates` and :func:`group_merge` mirror
+that).  The TPU's staging of table windows and the fold of window partials
+back into the table have no counterpart.  Beside each kernel is a plain
+PyTorch version of the same function, clipping included; a CPU tensor
+takes it, a CUDA tensor launches the kernel or raises.  Each wrapper
+counts its launches (``paged_gather.launches``,
 ``paged_scatter.launches``).
 
 Corner math, shared by kernels and plain versions:
@@ -338,6 +341,78 @@ def _lod_rows(coords_s, bc, c3, lod, static: PagedStatic):
     return row + spec.lod_first_idx[lod], w
 
 
+CHAIN = 16        # CHAIN of csrc/paged_hash.cu: slots a B3 thread walks
+GROUP = 8         # kGroup there: corners of a slot
+
+
+def group_merge(keys: torch.Tensor, vals: torch.Tensor):
+    """Plain mirror of B3's merge (``GroupMerge`` in ``csrc/paged_hash.cu``).
+
+    Row ``i`` of ``keys`` [T, K] (int64, negative = no update; K a multiple
+    of ``GROUP``) and ``vals`` [T, K] is what thread ``i`` walks, a slot's
+    ``GROUP`` corners at a time.  Equal keys of a group merge into their
+    first occurrence; a held pair whose key reappears in the next group
+    joins it, the others are issued; a group without a key changes
+    nothing.  Returns the (keys [M], sums [M]) that reach the table, one
+    global atomic each (sums that are exactly zero are dropped, as the
+    kernel drops them).  A ``cuda`` test holds their count to the atomics
+    the kernel's counting build issues."""
+    t = keys.shape[0]
+    keys = keys.reshape(t, -1, GROUP)
+    vals = vals.float().reshape(t, -1, GROUP)
+    first = torch.ones((GROUP, GROUP), dtype=torch.bool,
+                       device=keys.device).tril(-1)          # i < j
+    held_k = torch.full((t, GROUP), -1, dtype=torch.long, device=keys.device)
+    held_v = torch.zeros((t, GROUP), device=keys.device)
+    out_k, out_v = [], []
+    for gi in range(keys.shape[1]):
+        k, v = keys[:, gi], vals[:, gi]
+        live = k >= 0
+        has = live.any(dim=1)
+        same = (k[:, :, None] == k[:, None, :]) & live[:, :, None]
+        # j merges into the first i < j with its key
+        dup = (same & first).any(dim=2)
+        owner = torch.argmax((same & (first | torch.eye(
+            GROUP, dtype=torch.bool, device=k.device))).int(), dim=2)
+        v = torch.zeros_like(v).scatter_add_(1, owner, torch.where(live, v,
+                                                                   0.0))
+        k = torch.where(dup, -1, k)
+        # held pairs whose key reappears join it
+        match = ((held_k[:, :, None] == k[:, None, :])
+                 & (held_k >= 0)[..., None])
+        v = v + (match * held_v[..., None]).sum(dim=1)
+        gone = (held_k >= 0) & ~match.any(dim=2) & has[:, None]
+        out_k.append(held_k[gone])
+        out_v.append(held_v[gone])
+        held_k = torch.where(has[:, None], k, held_k)
+        held_v = torch.where(has[:, None], v, held_v)
+    out_k = torch.cat(out_k + [held_k.reshape(-1)])
+    out_v = torch.cat(out_v + [held_v.reshape(-1)])
+    keep = (out_k >= 0) & (out_v != 0)
+    return out_k[keep], out_v[keep]
+
+
+def chain_updates(coords_s, slot_valid, block_cell, g, static: PagedStatic,
+                  li: int, d: int = 0):
+    """Plain mirror of B3's walk at output LOD ``li`` and column ``d``: the
+    (LOD-local row, w * g) groups [n_chains, CHAIN * 8] each thread hands
+    to its merge (:func:`group_merge`), slot by slot; pad blocks, invalid
+    slots, zero gradients and padding past the last slot carry row -1 (the
+    kernel skips them)."""
+    ns = coords_s.shape[0]
+    lod = static.all_lods[li]
+    bc, c3, live = _slot_cells(block_cell, ns, static.group_res)
+    rows, w = _lod_rows(coords_s.float(), bc, c3, lod, static)
+    gv = g[:, li, d:d + 1].float()
+    keep = (live & slot_valid)[:, None] & (gv != 0)
+    rows = torch.where(keep, rows - static.spec.lod_first_idx[lod], -1)
+    vals = torch.where(keep, w * gv, 0.0)
+    pad = -ns % CHAIN
+    rows = torch.nn.functional.pad(rows, (0, 0, 0, pad), value=-1)
+    vals = torch.nn.functional.pad(vals, (0, 0, 0, pad))
+    return rows.reshape(-1, CHAIN * 8), vals.reshape(-1, CHAIN * 8)
+
+
 def paged_gather_plain(coords_s, slot_valid, block_cell, z,
                        static: PagedStatic) -> torch.Tensor:
     """Plain version of B2: [NS, L, ld] f32 interpolated latents of
@@ -432,9 +507,14 @@ def _check(coords_s, slot_valid, block_cell, static):
         raise ValueError('the paged encode is 3D only')
 
 
-def _launch(name, coords_s, slot_valid, block_cell, src, dst, static):
-    from shacira_tpu_torch.kernels.build import load
-    fn = getattr(load('paged_hash'), name)
+def _launch(name, coords_s, slot_valid, block_cell, src, dst, static,
+            lib=None):
+    """Launch entry point ``name`` of ``lib`` (default: the kernels built
+    from ``csrc/paged_hash.cu``) on the current stream."""
+    if lib is None:
+        from shacira_tpu_torch.kernels.build import load
+        lib = load('paged_hash')
+    fn = getattr(lib, name)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong,
                                            ctypes.POINTER(_KernelParams),
                                            ctypes.c_void_p]
@@ -492,6 +572,16 @@ def paged_scatter(coords_s, slot_valid, block_cell, g,
                                    static)
     if g.device.type != 'cuda':
         raise RuntimeError(f'paged_scatter: unsupported device {g.device}')
+    grad = _launch_scatter(coords_s, slot_valid, block_cell, g, static)
+    if g.numel():
+        paged_scatter.launches += 1
+    return grad
+
+
+def _launch_scatter(coords_s, slot_valid, block_cell, g, static: PagedStatic,
+                    lib=None) -> torch.Tensor:
+    """Launch ``paged_scatter`` of ``lib`` (default: the kernel built from
+    ``csrc/paged_hash.cu``) into a fresh zero-filled f32 table gradient."""
     grad = torch.zeros((static.spec.total_size, g.shape[-1]),
                        dtype=torch.float32, device=g.device)
     if g.numel() == 0:
@@ -499,8 +589,7 @@ def paged_scatter(coords_s, slot_valid, block_cell, g,
     coords_s, slot_valid, block_cell = _device_inputs(coords_s, slot_valid,
                                                       block_cell)
     _launch('paged_scatter', coords_s, slot_valid, block_cell,
-            g.to(torch.float32).contiguous(), grad, static)
-    paged_scatter.launches += 1
+            g.to(torch.float32).contiguous(), grad, static, lib)
     return grad
 
 

@@ -2,8 +2,12 @@
 
 Port of ``shacira_tpu/ops/pallas_scatter.py``.  Its Pallas kernel
 ``_scatter_kernel`` (a one-hot MXU matmul) becomes the CUDA kernel
-``csrc/scatter.cu`` (float ``atomicAdd``, one thread per row and column).
-Both uses of the JAX package's scatter run through it:
+``csrc/scatter.cu``: a warp walks a run of consecutive rows
+(:func:`merge_chunk_rows`) 32 at a time, sums runs of an equal index among
+rows 8 apart (the same corner of consecutive samples) with a segmented
+scan over lanes, and issues one float ``atomicAdd`` per run
+(:func:`lane_walks` and :func:`run_merge` are the plain mirror of that
+merge).  Both uses of the JAX package's scatter run through it:
 
 * :func:`scatter_add` -- the hash-grid backward (``ops/hashgrid.py``), one
   launch over all LODs;
@@ -36,6 +40,51 @@ def _check(idx: torch.Tensor, vals: torch.Tensor):
         raise ValueError(f'idx on {idx.device}, vals on {vals.device}')
 
 
+def merge_chunk_rows(n: int) -> int:
+    """Rows each warp of ``csrc/scatter.cu`` walks for ``n`` rows: 2 a
+    lane, doubled up to 32 a lane while at least 2^20 lanes stay busy."""
+    chunk = 2 * 32
+    while chunk < 32 * 32 and n // (2 * chunk // 32) >= 1 << 20:
+        chunk *= 2
+    return chunk
+
+
+def lane_walks(x: torch.Tensor, chunk: int, fill=-1) -> torch.Tensor:
+    """The run sequences of ``csrc/scatter.cu`` in ``x`` [N]: [runs,
+    chunk // 8], row j of every 8 rows of a warp's ``chunk`` rows (rows 8
+    apart, the same corner of consecutive samples); the last chunk padded
+    with ``fill``."""
+    x = torch.nn.functional.pad(x, (0, -x.shape[0] % chunk), value=fill)
+    return x.reshape(-1, chunk // 8, 8).transpose(1, 2).reshape(
+        -1, chunk // 8)
+
+
+def run_merge(keys: torch.Tensor, vals: torch.Tensor):
+    """Plain mirror of the merge in ``csrc/scatter.cu``: row ``i`` of
+    ``keys`` [S, K] (int64, negative = no update) and ``vals`` [S, K] is
+    one run sequence (:func:`lane_walks`); each run of an equal key is
+    summed and issued where the key changes (a row without an update ends
+    a run).  Returns the (keys [M], sums [M]) that reach the table, one
+    global atomic each (sums that are exactly zero are dropped, as the
+    kernel drops them).  A ``cuda`` test holds their count to the atomics
+    the kernel's counting build issues."""
+    held_k = torch.full((keys.shape[0],), -1, dtype=torch.long,
+                        device=keys.device)
+    held_v = torch.zeros((keys.shape[0],), device=keys.device)
+    out_k, out_v = [], []
+    for i in range(keys.shape[1]):
+        k, v = keys[:, i], vals[:, i].float()
+        end = k != held_k
+        out_k.append(held_k[end])
+        out_v.append(held_v[end])
+        held_v = torch.where(end, torch.where(k >= 0, v, 0.0), held_v + v)
+        held_k = k
+    out_k = torch.cat(out_k + [held_k])
+    out_v = torch.cat(out_v + [held_v])
+    keep = (out_k >= 0) & (out_v != 0)
+    return out_k[keep], out_v[keep]
+
+
 def scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor,
                       table_size: int) -> torch.Tensor:
     """Plain PyTorch version: ``out[t] = sum over idx == t of vals``, f32.
@@ -53,11 +102,13 @@ def scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor,
 
 
 def _launch_scatter(idx: torch.Tensor, vals: torch.Tensor,
-                    table_size: int) -> torch.Tensor:
-    """Launch ``scatter_add_rows`` on the current stream into a fresh
+                    table_size: int, lib=None) -> torch.Tensor:
+    """Launch ``scatter_add_rows`` of ``lib`` (default: the kernel built
+    from ``csrc/scatter.cu``) on the current stream into a fresh
     zero-filled f32 table."""
-    from shacira_tpu_torch.kernels.build import load
-    lib = load('scatter')
+    if lib is None:
+        from shacira_tpu_torch.kernels.build import load
+        lib = load('scatter')
     fn = lib.scatter_add_rows
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,

@@ -266,3 +266,144 @@ def test_scatter_kernel_matches_plain_on_card(cuda_device, ld, page_res):
     assert tph.paged_scatter.launches == before + 1
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))
+
+
+def _lego_tspec():
+    """The lego config's paged spec: 24 LODs 17..512, 2^19 rows a LOD,
+    page_res 16 (11 direct LODs, 13 paged with E = 128)."""
+    return thg.HashGridSpec(thg.geometric_resolutions(16, 512, 24), 19, 3,
+                            hash_layout='paged', page_res=16)
+
+
+def _chain_merged_gradient(coords, valid, bc, g, static):
+    """The table gradient as B3's threads build it, in plain PyTorch: each
+    chain's updates merged by the mirror of its merge, the issued sums
+    scattered; and (updates, issued atomics)."""
+    from shacira_tpu_torch.ops.scatter import scatter_add_plain
+    t, ld = static.spec.total_size, g.shape[-1]
+    grad = torch.zeros((t, ld))
+    updates = flushes = 0
+    for li, lod in enumerate(static.all_lods):
+        for d in range(ld):
+            keys, vals = tph.chain_updates(coords, valid, bc, g, static, li,
+                                           d)
+            k, v = tph.group_merge(keys, vals)
+            updates += int(((keys >= 0) & (vals != 0)).sum())
+            flushes += k.numel()
+            grad[:, d] += scatter_add_plain(
+                k + static.spec.lod_first_idx[lod], v[:, None], t)[:, 0]
+    return grad, updates, flushes
+
+
+@pytest.mark.parametrize('which', ['small16', 'small32', 'lego'])
+def test_chain_mirror_merges_to_the_plain_gradient(which):
+    """B3's walk, mirrored in plain PyTorch: chains of consecutive slots at
+    one LOD, each slot's corners merged into the next's, give the plain
+    version's table
+    gradient, with fewer global atomics than updates; on the lego geometry
+    blocks hold 8 segments of 16 samples, as the lego step groups them."""
+    *args, g, static = _mirror_case(which, 1)
+    assert static.direct_lods and static.lods
+    got, updates, flushes = _chain_merged_gradient(*args, g, static)
+    want = tph.paged_scatter_plain(*args, g, static)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    assert flushes < updates / 2
+
+
+def test_chain_mirror_at_the_cube_edge():
+    """The same at two latent columns on blocks of 128 slots in one cell:
+    the corner cells of the cube (slots on its faces, where the page clamp
+    binds), a middle cell, and a pad block."""
+    coords, valid, bc, g, static = _mirror_case('edge', 2)
+    got, updates, flushes = _chain_merged_gradient(coords, valid, bc, g,
+                                                   static)
+    want = tph.paged_scatter_plain(coords, valid, bc, g, static)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    assert flushes < updates     # uniform points in a cell repeat less
+
+
+def _block_cases(dev, static, ld, seed=9):
+    """Blocks of 128 slots, each inside one grouping cell: the corner cells
+    of the cube (with slots on its faces), a middle cell and a pad block;
+    ~10 % of the slots invalid."""
+    rng = np.random.default_rng(seed)
+    g = static.group_res
+    cells = [0, g ** 3 - 1, (g // 2) * (g * g + g + 1), g ** 3]
+    pts = []
+    for c in cells:
+        c3 = np.array([c // (g * g), (c // g) % g, c % g]) % g
+        pts.append(rng.uniform(c3 / g, (c3 + 1) / g, (128, 3)))
+    pts01 = np.concatenate(pts)
+    pts01[:20] = 0.0
+    pts01[128:148] = 1.0
+    n = pts01.shape[0]
+    coords = torch.as_tensor(pts01 * 2 - 1, dtype=torch.float32, device=dev)
+    valid = torch.as_tensor(rng.uniform(size=n) < 0.9, device=dev)
+    gout = torch.as_tensor(rng.normal(size=(n, len(static.all_lods), ld)
+                                      ).astype(np.float32), device=dev)
+    return coords, valid, torch.tensor(cells, dtype=torch.int32,
+                                       device=dev), gout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('which,ld', [('small16', 1), ('small16', 2),
+                                      ('small32', 2), ('lego', 1),
+                                      ('lego', 2)])
+def test_scatter_kernel_one_cell_blocks_on_card(cuda_device, which, ld):
+    """B3 on blocks whose 128 slots sit in one cell, at the cube's edge
+    (the page clamp) and in the middle, with a pad block; on the lego
+    geometry the block takes several passes over its LODs."""
+    tspec = _lego_tspec() if which == 'lego' else _tspec(int(which[5:]))
+    static = tph.default_static(tspec)
+    coords, valid, bc, g = _block_cases(cuda_device, static, ld)
+    got = tph.paged_scatter(coords, valid, bc, g, static)
+    want = tph.paged_scatter_plain(coords, valid, bc, g, static)
+    torch.cuda.synchronize()
+    assert float(want.abs().max()) > 1.0
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def _mirror_case(which, ld):
+    """CPU inputs (coords, valid, block_cell, g, static) of B3: grouped
+    segments on the small spec (page_res 16 or 32) or the lego geometry,
+    or one-cell blocks at the cube's edge (``edge``)."""
+    if which == 'edge':
+        static = tph.default_static(_tspec(16))
+        return (*_block_cases('cpu', static, ld), static)
+    if which == 'lego':
+        tspec, kw = _lego_tspec(), dict(k_seg=96, g=16, spb=8)
+    else:
+        tspec, kw = _tspec(int(which[5:])), {}
+    static = tph.default_static(tspec)
+    rng, _, tg, coords_s, slot_valid = _slots(8, tspec.page_res, **kw)
+    g = torch.as_tensor(rng.normal(size=(coords_s.shape[0],
+                                         len(static.all_lods), ld)
+                                   ).astype(np.float32))
+    return (torch.as_tensor(coords_s), torch.as_tensor(slot_valid),
+            tg['block_cell'], g, static)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('which,ld', [('small16', 1), ('small32', 2),
+                                      ('lego', 1), ('edge', 2)])
+def test_chain_mirror_counts_the_kernels_atomics_on_card(cuda_device, which,
+                                                         ld):
+    """B3's plain mirror (:func:`chain_updates`, :func:`group_merge`)
+    issues exactly the global atomics that the kernel, built to count
+    them, issues on the card: the mirror's walk (``CHAIN`` slots of
+    ``GROUP`` corners) is the kernel's."""
+    from shacira_tpu_torch.kernels.build import load, take_global_atomics
+    coords, valid, bc, g, static = _mirror_case(which, ld)
+    lib = load('paged_hash', count_atomics=True)
+    take_global_atomics(lib)
+    got = tph._launch_scatter(*(t.to(cuda_device) for t in (coords, valid,
+                                                             bc, g)),
+                              static, lib=lib)
+    counted = take_global_atomics(lib)
+    want, _, mirrored = _chain_merged_gradient(coords, valid, bc, g, static)
+    assert counted == mirrored
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))

@@ -174,7 +174,8 @@ def test_train_crosses_a_prune_on_cpu():
 
 
 def test_port_never_imports_jax_or_the_jax_package():
-    files = [os.path.join(ROOT, 'chip_smoke.py')]
+    files = [os.path.join(ROOT, n)
+             for n in ('chip_smoke.py', 'compare_kernels.py')]
     for base, _, names in os.walk(os.path.join(ROOT, 'shacira_tpu_torch')):
         files += [os.path.join(base, n) for n in names if n.endswith('.py')]
     assert len(files) > 15
