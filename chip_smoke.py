@@ -17,7 +17,9 @@ Phases, each of which must pass (exit code 1 otherwise):
                TB/s, or f32 operations over 67 TFLOP/s).  Scatter B1 (flat
                hash backward on random points and on the step's
                ray-ordered samples, per-ray sums), paged gather B2 (train
-               and prune shapes) and paged scatter B3.  For B1 and B3 also
+               and prune shapes, and at train shapes with its occupancy row
+               of a 128^3 grid, which must equal the plain version's
+               exactly) and paged scatter B3.  For B1 and B3 also
                count the updates (one global atomic each without merging),
                the global atomics the merging kernel issued (counted on the
                card by the same source built with -DCOUNT_GLOBAL_ATOMICS)
@@ -40,7 +42,11 @@ Phases, each of which must pass (exit code 1 otherwise):
                trained across the prune and evaluated on one view, counts
                zeroed before and read after: B1(b), B2 and B3 must have
                launched, B2 also in the prune and in the evaluation; then
-               its profile as in phase 5.
+               its profile as in phase 5;
+7. kernel   -- the paged run again with ``--fine-mode kernel``: the fine
+               occupancy query rides B2 as its occupancy row, which every
+               training step must launch (the prune and the evaluation run
+               B2 without it); then its profile.
 
 The second-to-last lines are the card's name and power limit and the
 kernels JSON; the last line is the result JSON.  Exits non-zero without
@@ -296,13 +302,16 @@ PAGED_FLAGS = ['--hash-layout', 'paged', '--page-res', '16',
                '--eval-seg-budget', '24576', '--group-segs-per-block', '8',
                '--fine-mode', 'deferred', '--max-samples', '262144']
 SCENE_DIST = (0.8, 4.4)   # ray bounds of the analytic scene below
+OCC_RES = 128             # the lego config's occupancy grid (blas_level 7)
 
 
-def lego_args(dev, paged: bool, prune_every=None):
-    """The lego config as the app parses it (flat or paged layout)."""
+def lego_args(dev, paged: bool, prune_every=None, fine_mode='deferred'):
+    """The lego config as the app parses it (flat or paged layout, the
+    paged one with ``fine_mode``)."""
     from shacira_tpu_torch import config as cfg_mod
+    flags = [fine_mode if f == 'deferred' else f for f in PAGED_FLAGS]
     argv = ['--config', os.path.join(ROOT, 'configs', 'nerf_lego.yaml'),
-            '--device', dev] + (PAGED_FLAGS if paged else [])
+            '--device', dev] + (flags if paged else [])
     if prune_every is not None:
         argv += ['--prune-every', str(prune_every)]
     return cfg_mod.parse_args(cfg_mod.build_nerf_parser(), argv)
@@ -323,17 +332,21 @@ def _corner_pairs(coords_s, slot_valid, block_cell, static):
             keep)
 
 
-def paged_bound(ns, n_live, nb, static, ld, slot_rows, table_rows):
+def paged_bound(ns, n_live, nb, static, ld, slot_rows, table_rows,
+                occ_bytes=0):
     """(bound_ms, bound_by) of B2 or B3: validity [ns] and block cells [nb]
     read once, coords read for the ``n_live`` live slots only (the kernels
     skip pad blocks and invalid slots before reading them), ``slot_rows``
-    rows of [L, ld] moved (B2 writes all ``ns``, B3 reads the live ones'
-    gradient) and ``table_rows`` rows of the table moved (B2 reads the rows
-    it touches, B3 writes the whole table); f32 operations 8 corners x
-    (2 weight products + ld multiply-adds) per live (slot, LOD)."""
+    rows of [L(+1), ld] moved (B2 writes all ``ns``, with the occupancy row
+    when ``static.occ_res``; B3 reads the live ones' gradient),
+    ``table_rows`` rows of the table moved (B2 reads the rows it touches,
+    B3 writes the whole table) and ``occ_bytes`` bytes of the packed
+    occupancy grid read; f32 operations 8 corners x (2 weight products +
+    ld multiply-adds) per live (slot, LOD)."""
     nl = len(static.all_lods)
-    byts = (n_live * 12 + ns + nb * 4 + slot_rows * nl * ld * 4
-            + table_rows * ld * 4)
+    byts = (n_live * 12 + ns + nb * 4
+            + slot_rows * (nl + (1 if static.occ_res else 0)) * ld * 4
+            + table_rows * ld * 4 + occ_bytes)
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
     t_ops = n_live * nl * 8 * (2 + 2 * ld) / F32_FLOPS * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
@@ -344,16 +357,33 @@ def _rel_err(got, want):
     return err, err / max(float(want.abs().max()), 1e-30)
 
 
-def check_paged_gather(name, coords_s, slot_valid, block_cell, z, static,
-                       reps, plain_reps=2):
-    """B2 against its plain version, timed, with its byte bound."""
+def occ_bytes_read(coords_s, keep, block_cell, static):
+    """Distinct bytes of the packed occupancy grid that the live slots'
+    occupancy row reads (the window-clamped cell of each)."""
     import torch
     from shacira_tpu_torch.ops import paged_hash as ph
-    args = (coords_s, slot_valid, block_cell, z, static)
+    _, c3, _ = ph._slot_cells(block_cell, coords_s.shape[0],
+                              static.group_res)
+    index, _, _ = ph.occupancy_bytes(coords_s, c3, static.occ_res,
+                                     static.group_res)
+    return int(torch.unique(index[keep]).numel())
+
+
+def check_paged_gather(name, coords_s, slot_valid, block_cell, z, static,
+                       reps, plain_reps=2, occ=None):
+    """B2 against its plain version, timed, with its byte bound; with
+    ``occ`` (a packed occupancy grid) and ``static.occ_res`` also its
+    occupancy row, which must equal the plain version's exactly."""
+    import torch
+    from shacira_tpu_torch.ops import paged_hash as ph
+    args = (coords_s, slot_valid, block_cell, z, static, occ)
     out_k = ph.paged_gather(*args)
     out_p = ph.paged_gather_plain(*args)
     torch.cuda.synchronize()
-    err, rel = _rel_err(out_k, out_p)
+    nl = len(static.all_lods)
+    err, rel = _rel_err(out_k[:, :nl], out_p[:, :nl])
+    occ_mismatch = int((out_k[:, nl:] != out_p[:, nl:]).sum())
+    occ_mean = float(out_p[:, nl:].mean()) if static.occ_res else None
     del out_k, out_p
     rows, _, keep = _corner_pairs(coords_s, slot_valid, block_cell, static)
     touched = torch.zeros((static.spec.total_size,), dtype=torch.bool,
@@ -364,19 +394,28 @@ def check_paged_gather(name, coords_s, slot_valid, block_cell, z, static,
     ms = time_ms(lambda: ph.paged_gather(*args), reps)
     plain_ms = time_ms(lambda: ph.paged_gather_plain(*args), plain_reps)
     ns = coords_s.shape[0]
+    n_occ = (occ_bytes_read(coords_s, keep, block_cell, static)
+             if static.occ_res else 0)
     b_ms, b_by = paged_bound(ns, int(keep.sum()), block_cell.shape[0],
-                             static, z.shape[-1], ns, n_touched)
+                             static, z.shape[-1], ns, n_touched, n_occ)
     log(f'  {name}: slots={coords_s.shape[0]} (live '
-        f'{int(keep.sum())}) L={len(static.all_lods)} T='
-        f'{static.spec.total_size} rows read={n_touched} '
-        f'max_abs_err={err:.3e} max_rel_err={rel:.3e} kernel {ms:.4f} ms, '
-        f'plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})')
+        f'{int(keep.sum())}) L={nl} T={static.spec.total_size} rows read='
+        f'{n_touched} max_abs_err={err:.3e} max_rel_err={rel:.3e} '
+        + (f'occupancy row: {occ_mismatch} mismatches, mean {occ_mean:.4f}, '
+           f'{n_occ} grid bytes read; ' if static.occ_res else '')
+        + f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} '
+        f'ms ({b_by})')
     if not rel <= REL_TOL:
         raise AssertionError(f'{name}: kernel disagrees with its plain '
                              f'version (rel {rel:.3e} > {REL_TOL})')
+    if occ_mismatch:
+        raise AssertionError(f'{name}: the occupancy row differs from the '
+                             f'plain version at {occ_mismatch} slots')
     return {'max_abs_err': err, 'max_rel_err': rel, 'ms': ms,
             'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
-            'library_ms': None}
+            'library_ms': None,
+            **({'occupancy_row_mismatches': occ_mismatch}
+               if static.occ_res else {})}
 
 
 def check_paged_scatter(name, coords_s, slot_valid, block_cell, g, static,
@@ -456,7 +495,9 @@ def paged_inputs(dev):
     """B2's and B3's inputs at the paged lego step's shapes: 24,576
     spatially tight segments of 16 samples grouped 8 to a block (458,752
     slots): coords_s, slot_valid, block_cell, a table z [T, 1], an output
-    gradient g [458,752, 24, 1] and the static encode description."""
+    gradient g [458,752, 24, 1], the static encode description, and a
+    packed 128^3 occupancy grid (cells occupied with probability 0.3) with
+    the static description of B2 with its occupancy row."""
     import torch
     from shacira_tpu_torch import config as cfg_mod
     from shacira_tpu_torch.ops import paged_hash as ph
@@ -485,39 +526,55 @@ def paged_inputs(dev):
     z = torch.randn((spec.total_size, 1), generator=gen, device=dev)
     gout = torch.randn((coords_s.shape[0], len(static.all_lods), 1),
                        generator=gen, device=dev)
+    occ = torch.rand((OCC_RES,) * 3, generator=gen, device=dev) < 0.3
     return {'coords_s': coords_s, 'slot_valid': slot_valid,
             'block_cell': grp['block_cell'], 'z': z, 'g': gout,
-            'static': static}
+            'static': static, 'occ': ph.pack_occupancy(occ),
+            'static_occ': ph.default_static(spec, OCC_RES)}
+
+
+def prune_inputs(dev, group_res):
+    """B2's slots in the paged prune: one jittered point per cell of the
+    128^3 occupancy grid in grouped order (2,097,152 rows), as (coords_s,
+    slot_valid, block_cell)."""
+    import torch
+    from shacira_tpu_torch.models.nefs import nerf as nerf_mod
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    idx3, bcell, _ = nerf_mod._prune_block_layout(OCC_RES, group_res)
+    u = torch.rand((idx3.shape[0], 3), generator=gen, device=dev)
+    pts = ((torch.as_tensor(idx3, device=dev) + u) / OCC_RES) * 2 - 1
+    return (pts, torch.ones((idx3.shape[0],), dtype=torch.bool, device=dev),
+            torch.as_tensor(bcell, device=dev))
 
 
 def phase_paged_kernels(dev):
     """B2 and B3 at the paged lego step's shapes (:func:`paged_inputs`),
     and B2 at the paged prune's 2,097,152 rows."""
-    import torch
-    from shacira_tpu_torch.models.nefs import nerf as nerf_mod
     inp = paged_inputs(dev)
     slots = (inp['coords_s'], inp['slot_valid'], inp['block_cell'])
     z, static = inp['z'], inp['static']
     rows = {'paged_gather': check_paged_gather(
         'paged_gather (B2) train', *slots, z, static, reps=20)}
+    rows['paged_gather_occupancy'] = check_paged_gather(
+        'paged_gather (B2) train, occupancy row', *slots, z,
+        inp['static_occ'], reps=20, occ=inp['occ'])
     rows['paged_scatter'] = check_paged_scatter(
         'paged_scatter (B3) train', *slots, inp['g'], static, reps=20)
     del inp, slots
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(2)
-    # the paged prune: one jittered point per cell of the 128^3 grid
-    idx3, bcell, _ = nerf_mod._prune_block_layout(128, static.group_res)
-    u = torch.rand((idx3.shape[0], 3), generator=gen, device=dev)
-    prune_pts = ((torch.as_tensor(idx3, device=dev) + u) / 128) * 2 - 1
     rows['paged_gather']['prune'] = check_paged_gather(
-        'paged_gather (B2) prune', prune_pts,
-        torch.ones((idx3.shape[0],), dtype=torch.bool, device=dev),
-        torch.as_tensor(bcell, device=dev), z, static, reps=5, plain_reps=1)
+        'paged_gather (B2) prune', *prune_inputs(dev, static.group_res), z,
+        static, reps=5, plain_reps=1)
     rows['paged_gather'].update(
         source='shacira_tpu_torch/csrc/paged_hash.cu',
         replaces='shacira_tpu/ops/paged_hash.py:720',
         use='paged encode forward, prune and eval, '
             'shacira_tpu/ops/paged_hash.py:1163')
+    rows['paged_gather_occupancy'].update(
+        source='shacira_tpu_torch/csrc/paged_hash.cu',
+        replaces='shacira_tpu/ops/paged_hash.py:720',
+        use="paged encode forward with the occupancy row (fine_mode="
+            "'kernel'), shacira_tpu/ops/paged_hash.py:415, :777")
     rows['paged_scatter'].update(
         source='shacira_tpu_torch/csrc/paged_hash.cu',
         replaces='shacira_tpu/ops/paged_hash.py:786',
@@ -645,6 +702,7 @@ def _launch_counts():
     return {'scatter_add': scatter.scatter_add.launches,
             'segment_sum': scatter.segment_sum.launches,
             'paged_gather': ph.paged_gather.launches,
+            'paged_gather_occupancy': ph.paged_gather.occupancy_launches,
             'paged_scatter': ph.paged_scatter.launches}
 
 
@@ -659,9 +717,9 @@ def _delta(after, before):
     return {k: after[k] - before[k] for k in after}
 
 
-def phase_lego(dev, prune_every, paged: bool = False):
+def phase_lego(dev, prune_every, paged: bool = False, fine_mode='deferred'):
     """Full-width lego-config training, configured through the app's code
-    (flat layout, or the paged one with ``PAGED_FLAGS``).
+    (flat layout, or the paged one with ``PAGED_FLAGS`` and ``fine_mode``).
 
     Steps run as the trainer runs them, one chunk after another with no
     host sync between steps, so step times are means over blocks of steps,
@@ -672,12 +730,13 @@ def phase_lego(dev, prune_every, paged: bool = False):
     from shacira_tpu_torch.apps.train_nerf import build_trainer
     if prune_every is not None:
         log(f'  prune_every lowered to {prune_every} through the CLI')
-    args = lego_args(dev, paged, prune_every)
+    args = lego_args(dev, paged, prune_every, fine_mode)
     if args.prune_every < 3:
         raise ValueError('the lego phase needs prune_every >= 3')
     data = sphere_scene(num_views=24, res=SCENE_RES)
     trainer = build_trainer(args, data)
-    if trainer.use_paged != paged:
+    if trainer.use_paged != paged or (
+            paged and trainer.tracer_cfg.fine_mode != fine_mode):
         raise AssertionError('the lego trainer took the wrong trace path')
     spec = trainer.model_cfg.grid.spec
     log(f'  lego config ({spec.hash_layout}): {spec.num_lods} LODs '
@@ -688,7 +747,7 @@ def phase_lego(dev, prune_every, paged: bool = False):
         f'{args.prune_every}, chunk_size {args.chunk_size}'
         + (f', segment {args.segment_size}, seg_budget {args.seg_budget}, '
            f'eval_seg_budget {args.eval_seg_budget}, page_res '
-           f'{args.page_res}' if paged else ''))
+           f'{args.page_res}, fine_mode {fine_mode}' if paged else ''))
     entries = []
 
     def timed(n):
@@ -719,6 +778,7 @@ def phase_lego(dev, prune_every, paged: bool = False):
         entries[-1]
     result = {
         'layout': spec.hash_layout,
+        'fine_mode': trainer.tracer_cfg.fine_mode if paged else None,
         'steps': trainer.iteration, 'first_step_ms': first_s * 1e3,
         'mean_step_ms': block_s * 1e3,
         'mean_step_ms_of_steps': [2, args.prune_every - 1],
@@ -748,6 +808,14 @@ def phase_lego(dev, prune_every, paged: bool = False):
                                  f'{in_prune_step}')
         if in_eval['paged_gather'] < 1 or in_eval['paged_scatter'] != 0:
             raise AssertionError(f'eval did not go through B2: {in_eval}')
+        # 'kernel': every training step's B2 carries the occupancy row;
+        # the prune and the evaluation (which defers) run it without
+        with_occ = trainer.iteration if fine_mode == 'kernel' else 0
+        if (before_eval['paged_gather_occupancy'] != with_occ
+                or in_eval['paged_gather_occupancy'] != 0):
+            raise AssertionError(f'B2 occupancy-row launches: '
+                                 f'{before_eval} (want {with_occ} in '
+                                 f'training), {in_eval} in eval')
     return result, launches, trainer, args, data
 
 
@@ -846,11 +914,12 @@ def main(argv=None) -> int:
     phase_parity(dev, paged=True)
     from shacira_tpu_torch.apps.train_nerf import build_trainer
     launches = {}
-    for paged in (False, True):
-        name = 'paged' if paged else 'lego'
+    for name, paged, fine_mode in (('lego', False, None),
+                                   ('paged', True, 'deferred'),
+                                   ('kernel', True, 'kernel')):
         log(f'phase {name}:')
         result, launches[name], trainer, lego_args, data = phase_lego(
-            'cuda', args.prune_every, paged=paged)
+            'cuda', args.prune_every, paged, fine_mode)
         log(f'phase {name} profile:')
         phase_profile(trainer, 3, f'{name}, after the prune',
                       result['mean_step_ms_after_prune'])
@@ -862,15 +931,18 @@ def main(argv=None) -> int:
         del fresh
         torch.cuda.empty_cache()
     # each kernel's launches come from the path it serves: B1 from the flat
-    # lego run, B2 and B3 from the paged one (which also runs B1(b))
-    # (row name, wrapper whose launches it reports, path); the ray-ordered
-    # row times the same wrapper as scatter_add on the step's sample order
+    # lego run, B2 and B3 from the paged one (which also runs B1(b)), B2
+    # with its occupancy row from the 'kernel' run
+    # (row name, wrapper count it reports, path); the ray-ordered row times
+    # the same wrapper as scatter_add on the step's sample order
     path_of = (('scatter_add', 'scatter_add', 'lego'),
                ('scatter_add_ray_ordered', 'scatter_add', 'lego'),
                ('segment_sum', 'segment_sum', 'lego'),
                ('paged_gather', 'paged_gather', 'paged'),
+               ('paged_gather_occupancy', 'paged_gather_occupancy', 'kernel'),
                ('paged_scatter', 'paged_scatter', 'paged'))
-    counts = ('updates', 'atomics', 'distinct_per_tile')
+    counts = ('updates', 'atomics', 'distinct_per_tile',
+              'occupancy_row_mismatches')
     kernels = []
     for name, wrapper, path in path_of:
         row = rows[name]
@@ -888,8 +960,10 @@ def main(argv=None) -> int:
                         'library_ms': row['library_ms'],
                         **{c: row[c] for c in counts if c in row}})
     missing = [k['name'] for k in kernels if k['launches'] <= 0]
-    if launches['paged']['segment_sum'] <= 0:
-        missing.append('segment_sum (paged path)')
+    for path in ('paged', 'kernel'):
+        for wrapper in ('segment_sum', 'paged_gather', 'paged_scatter'):
+            if launches[path][wrapper] <= 0:
+                missing.append(f'{wrapper} ({path} path)')
     if missing:
         raise AssertionError(f'kernels not launched on the main path: '
                              f'{missing}')

@@ -166,7 +166,7 @@ def interpolate(params: dict, cfg: LatentGridConfig, coords: torch.Tensor, *,
 
 
 def paged_zbar(cfg: LatentGridConfig, coords: torch.Tensor, grouping: dict,
-               seg_size: int, *, affine) -> torch.Tensor:
+               seg_size: int, *, affine, occ=None) -> torch.Tensor:
     """Block-local latent interpolation on segment-ordered rows.
 
     ``coords`` [K * seg_size, 3] are the rows of K segments; ``grouping``
@@ -174,7 +174,9 @@ def paged_zbar(cfg: LatentGridConfig, coords: torch.Tensor, grouping: dict,
     grouping cell.  Every direct and paged LOD is interpolated in one pass
     of kernel B2 (backward B3) over the slot rows, and the result is
     permuted back.  Returns raw latents [K * seg_size, Lk, ld] in ascending
-    LOD order."""
+    LOD order; with ``occ`` (``ops/paged_hash.pack_occupancy`` of the
+    occupancy grid) one more row, the per-sample fine occupancy in {0, 1}
+    (fine_mode='kernel')."""
     z = affine[0]
     n2 = coords.shape[0]
     k2 = n2 // seg_size
@@ -186,10 +188,12 @@ def paged_zbar(cfg: LatentGridConfig, coords: torch.Tensor, grouping: dict,
                            rows[torch.clamp(s2s, max=k2 - 1)], 0.0)
     coords_s = coords_s.reshape(n_slotseg * seg_size, 3)
     slot_valid = sv_seg[:, None].expand(-1, seg_size).reshape(-1)
-    static = ph.default_static(cfg.spec)
+    static = ph.default_static(cfg.spec,
+                               occ.shape[0] if occ is not None else 0)
     zbar_s = ph.paged_interp_lods(coords_s, slot_valid,
-                                  grouping['block_cell'], z, static)
-    lk, ld = len(static.all_lods), z.shape[-1]
+                                  grouping['block_cell'], z, static, occ)
+    lk = len(static.all_lods) + (1 if static.occ_res else 0)
+    ld = z.shape[-1]
     zbar_rows = ph.permute_rows(
         zbar_s.reshape(n_slotseg, seg_size * lk * ld),
         grouping['seg_to_slotseg'], s2s)

@@ -122,10 +122,14 @@ def nerf_feats(params: dict, cfg: NeuralRadianceFieldConfig,
 
 
 def nerf_zbar(cfg: NeuralRadianceFieldConfig, coords: torch.Tensor,
-              grouping: dict, seg_size: int, *, affine) -> torch.Tensor:
+              grouping: dict, seg_size: int, *, affine,
+              occ=None) -> torch.Tensor:
     """Block-local LOD latents on segment-ordered rows (the paged encode's
-    first stage, ``latent_grid.paged_zbar``): [N, Lk * ld]."""
-    zb = lg.paged_zbar(cfg.grid, coords, grouping, seg_size, affine=affine)
+    first stage, ``latent_grid.paged_zbar``): [N, Lk * ld]; with ``occ``
+    the last ld columns are the fine occupancy row (split it off before
+    decoding)."""
+    zb = lg.paged_zbar(cfg.grid, coords, grouping, seg_size, affine=affine,
+                       occ=occ)
     return zb.reshape(zb.shape[0], -1)
 
 

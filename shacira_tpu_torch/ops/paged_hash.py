@@ -14,18 +14,22 @@ written for the TPU (one-hot MXU matmuls over VMEM-resident windows):
   latents at every slot row for every direct and paged LOD;
 * B3, ``_scatter_kernel`` -- its backward: the table gradient.
 
-Here they are the CUDA kernels ``csrc/paged_hash.cu``.  ``paged_gather``
-recomputes each (slot, LOD)'s eight corner rows from the coords and reads
-the ``[T, ld]`` table directly.  In ``paged_scatter`` one thread walks a
+Here they are the CUDA kernels ``csrc/paged_hash.cu``.  In
+``paged_gather`` a CUDA block takes the slots of one kernel block, a warp
+32 consecutive slots at one LOD; the corner rows are built from per-axis
+terms and read from the ``[T, ld]`` table directly.  It can also return
+the fine occupancy row of ``fine_mode='kernel'`` (:func:`pack_occupancy`,
+:func:`occupancy_row_plain`).  In ``paged_scatter`` one thread walks a
 chain of ``CHAIN`` consecutive slots at one LOD and carries each corner's
 update into the next slot's corner of the same row in registers before its
 float atomics (:func:`chain_updates` and :func:`group_merge` mirror
-that).  The TPU's staging of table windows and the fold of window partials
-back into the table have no counterpart.  Beside each kernel is a plain
-PyTorch version of the same function, clipping included; a CPU tensor
-takes it, a CUDA tensor launches the kernel or raises.  Each wrapper
-counts its launches (``paged_gather.launches``,
-``paged_scatter.launches``).
+that).  The TPU's staging of table windows (``_slab_tables``,
+``occ_slab_tables``) and the fold of window partials back into the table
+have no counterpart.  Beside each kernel is a plain PyTorch version of the
+same function, clipping included; a CPU tensor takes it, a CUDA tensor
+launches the kernel or raises.  Each wrapper counts its launches
+(``paged_gather.launches``, of them ``paged_gather.occupancy_launches``
+with the occupancy row, ``paged_scatter.launches``).
 
 Corner math, shared by kernels and plain versions:
 
@@ -254,13 +258,8 @@ class PagedStatic:
     spec: HashGridSpec
     lods: tuple              # paged LOD indices
     direct_lods: tuple = ()  # direct LODs, through per-cell slab windows
-    occ_res: int = 0         # in-kernel occupancy row: not ported
-
-    def __post_init__(self):
-        if self.occ_res:
-            raise NotImplementedError(
-                "the paged kernel's occupancy row (fine_mode='kernel') is "
-                'not ported yet (ROADMAP Queue A item 9b)')
+    occ_res: int = 0         # >0: one more output row, the fine occupancy
+                             # of a [occ_res]^3 grid (:func:`pack_occupancy`)
 
     @property
     def all_lods(self):
@@ -287,10 +286,108 @@ class PagedStatic:
                             self.spec.codebook_size, 3, self.spec.page_res)[1]
 
 
-def default_static(spec: HashGridSpec) -> PagedStatic:
-    """The block-local encode of every direct and paged LOD."""
+def default_static(spec: HashGridSpec, occ_res: int = 0) -> PagedStatic:
+    """The block-local encode of every direct and paged LOD (and, with
+    ``occ_res``, the occupancy row)."""
     _, direct, pag = blocklocal_lods(spec)
-    return PagedStatic(spec=spec, lods=pag, direct_lods=direct)
+    return PagedStatic(spec=spec, lods=pag, direct_lods=direct,
+                       occ_res=occ_res)
+
+
+# ---------------------------------------------------------------------------
+# The occupancy row (fine_mode='kernel')
+#
+# B2 can also return, per slot, the fine occupancy of the sample's cell in a
+# [res]^3 grid, so that the tracer's per-sample fine query rides the encode.
+# The TPU kernel reads it from a per-grouping-cell window of the grid
+# (``occ_slab_tables``, bits packed along z), clamping the cell into that
+# window; the port reads the grid itself (:func:`pack_occupancy`) and clamps
+# the same way, so the two agree bit for bit: x and y in cells to
+# ``[0, w - 1]`` of the window, z in bytes to ``[0, wb - 1]`` with the bit
+# taken from the unclamped ``z & 7``.  Outside ``[-1, 1]^3`` the row is 0.
+# ---------------------------------------------------------------------------
+
+def occ_slab_width(res: int, group_res: int = 8):
+    """(cells w, z-bytes wb) of a grouping cell's occupancy window: every
+    cell of a sample within ``DIRECT_MARGIN`` of the cell (no corner
+    straddle, one cell of floor straddle)."""
+    w = min(int(np.ceil(res * (1.0 / group_res + 2.0 * DIRECT_MARGIN))) + 1,
+            res)
+    return w, (w + 6) // 8 + 1
+
+
+def occ_starts(c: torch.Tensor, res: int, group_res: int = 8) -> torch.Tensor:
+    """Occupancy-window starts (cells) of grouping-cell coordinates ``c``:
+    ``floor((c / group_res - DIRECT_MARGIN) * res)`` in integer arithmetic
+    in units of 1/32, clipped to ``[0, res - w]``."""
+    w, _ = occ_slab_width(res, group_res)
+    m32 = round(DIRECT_MARGIN * 32)
+    st = torch.div((c * (32 // group_res) - m32) * res, 32,
+                   rounding_mode='floor')
+    return torch.clamp(st, 0, res - w)
+
+
+def pack_occupancy(occ: torch.Tensor) -> torch.Tensor:
+    """Occupancy grid [res, res, res] bool (``[x, y, z]``) -> the layout the
+    occupancy row reads: uint8 [res, res, res // 8 + 1], bit k of byte zb
+    holding ``occ[x, y, 8 zb + k]``, and one zero byte past each z row (the
+    last byte of a window at the grid's far side).  Trainers build it once
+    per prune."""
+    res = occ.shape[0]
+    if occ.shape != (res, res, res) or res % 8:
+        raise ValueError(f'occupancy [res]^3 with res % 8 == 0 expected, '
+                         f'got {tuple(occ.shape)}')
+    bits = occ.reshape(res, res, res // 8, 8).to(torch.uint8)
+    weight = torch.ones((), dtype=torch.uint8, device=occ.device) << \
+        torch.arange(8, dtype=torch.uint8, device=occ.device)
+    packed = (bits * weight).sum(dim=-1).to(torch.uint8)
+    return torch.nn.functional.pad(packed, (0, 1))
+
+
+def occupancy_bytes(coords_s: torch.Tensor, c3: torch.Tensor, res: int,
+                    group_res: int):
+    """Where the occupancy row of each slot reads (grouping-cell
+    coordinates ``c3`` [NS, 3]): the index [NS] of its byte in the flat
+    packed grid, window clamps applied, its bit [NS], and whether the
+    sample lies in ``[-1, 1]^3`` [NS].  The cell is
+    ``accel/occupancy.query``'s: ``floor(clip((c * 0.5 + 0.5) * res, 0,
+    f32(res - 1e-5)))``."""
+    w, wb = occ_slab_width(res, group_res)
+    c = coords_s.float()
+    x = torch.clamp((c * 0.5 + 0.5) * res, 0.0,
+                    float(np.float32(res - 1e-5)))
+    pos = torch.floor(x).long()
+    inside = torch.all((c >= -1.0) & (c <= 1.0), dim=-1)
+    st = occ_starts(c3, res, group_res)
+    cell = st + torch.clamp(pos - st, 0, w - 1)              # x, y used
+    zb0 = st[:, 2] >> 3
+    zb = zb0 + torch.clamp((pos[:, 2] >> 3) - zb0, 0, wb - 1)
+    index = (cell[:, 0] * res + cell[:, 1]) * (res // 8 + 1) + zb
+    return index, pos[:, 2] & 7, inside
+
+
+def occupancy_row_plain(coords_s: torch.Tensor, c3: torch.Tensor,
+                        occ_packed: torch.Tensor, res: int,
+                        group_res: int) -> torch.Tensor:
+    """[NS] f32 in {0, 1}: the fine occupancy of each slot's cell read
+    through its block's window (:func:`occupancy_bytes`), 0 outside
+    ``[-1, 1]^3``."""
+    index, bit, inside = occupancy_bytes(coords_s, c3, res, group_res)
+    byte = occ_packed.reshape(-1)[index].long()
+    return ((byte >> bit) & 1).float() * inside.float()
+
+
+# B2 divides by each paged LOD's resolution through a multiply-high
+# reciprocal: ((c * page_res) * recip) >> 32 == (c * page_res) // res for
+# every numerator below RECIP_NUM_LIMIT and res up to RECIP_RES_LIMIT (held
+# exhaustively by a CPU test); _kernel_params refuses anything beyond.
+RECIP_RES_LIMIT = 2048
+RECIP_NUM_LIMIT = 1 << 16
+
+
+def page_recip(res: int) -> int:
+    """``ceil(2^32 / res)``, B2's reciprocal of a paged LOD's resolution."""
+    return -(-(1 << 32) // res)
 
 
 # ---------------------------------------------------------------------------
@@ -414,11 +511,12 @@ def chain_updates(coords_s, slot_valid, block_cell, g, static: PagedStatic,
 
 
 def paged_gather_plain(coords_s, slot_valid, block_cell, z,
-                       static: PagedStatic) -> torch.Tensor:
+                       static: PagedStatic, occ=None) -> torch.Tensor:
     """Plain version of B2: [NS, L, ld] f32 interpolated latents of
-    ``static.all_lods`` at the slot coords; pad blocks and invalid slots
-    give 0."""
-    ns = coords_s.shape[0]
+    ``static.all_lods`` at the slot coords, and with ``static.occ_res`` one
+    more row (every column) holding the occupancy row read from ``occ``
+    (:func:`pack_occupancy`); pad blocks and invalid slots give 0."""
+    ns, ld = coords_s.shape[0], z.shape[-1]
     bc, c3, live = _slot_cells(block_cell, ns, static.group_res)
     keep = (live & slot_valid).float()[:, None]
     table = z.float()
@@ -426,8 +524,12 @@ def paged_gather_plain(coords_s, slot_valid, block_cell, z,
     for lod in static.all_lods:
         rows, w = _lod_rows(coords_s.float(), bc, c3, lod, static)
         out.append(torch.sum(table[rows] * w[..., None], dim=1) * keep)
+    if static.occ_res:
+        row = occupancy_row_plain(coords_s, c3, occ, static.occ_res,
+                                  static.group_res)
+        out.append(row[:, None].expand(-1, ld) * keep)
     if not out:
-        return torch.zeros((ns, 0, z.shape[-1]), device=z.device)
+        return torch.zeros((ns, 0, ld), device=z.device)
     return torch.stack(out, dim=1)
 
 
@@ -463,22 +565,28 @@ class _KernelParams(ctypes.Structure):
                 ('row_off', ctypes.c_longlong * MAX_LODS),
                 ('entries', ctypes.c_int), ('page_res', ctypes.c_int),
                 ('group_res', ctypes.c_int), ('margin32', ctypes.c_int),
-                ('ld', ctypes.c_int), ('block_rows', ctypes.c_int)]
+                ('ld', ctypes.c_int), ('block_rows', ctypes.c_int),
+                ('recip', ctypes.c_uint * MAX_LODS),
+                ('occ', ctypes.c_void_p), ('occ_res', ctypes.c_int),
+                ('occ_w', ctypes.c_int), ('occ_wb', ctypes.c_int),
+                ('occ_hi', ctypes.c_float)]
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_params(static: PagedStatic, ld: int, block_rows: int):
     lods = static.all_lods
     g = static.group_res
+    spec = static.spec
     if len(lods) > MAX_LODS:
         raise ValueError(f'{len(lods)} LODs: the kernels take {MAX_LODS}')
     if 32 % g:
         raise NotImplementedError(
             'the paged kernels compute slab starts in integer arithmetic '
             'in units of 1/32: group_res must divide 32')
+    if spec.total_size * ld >= 2 ** 31:
+        raise ValueError('the paged kernels index the table in int32')
     p = _KernelParams()
     p.n_lods, p.n_direct = len(lods), len(static.direct_lods)
-    spec = static.spec
     for i, lod in enumerate(lods):
         res = spec.resolutions[lod]
         p.res[i] = res
@@ -486,10 +594,22 @@ def _kernel_params(static: PagedStatic, ld: int, block_rows: int):
         p.row_off[i] = spec.lod_first_idx[lod]
         if i < p.n_direct:
             p.width[i] = direct_slab_width(res, g)
+        else:
+            if (res > RECIP_RES_LIMIT
+                    or (res - 1) * static.page_res >= RECIP_NUM_LIMIT):
+                raise ValueError(
+                    f'paged LOD res {res}: the page-axis reciprocal is '
+                    f'exact up to res {RECIP_RES_LIMIT} and numerators '
+                    f'below {RECIP_NUM_LIMIT}')
+            p.recip[i] = page_recip(res)
     p.entries = static.entries_per_page
     p.page_res, p.group_res = static.page_res, g
     p.margin32 = round(DIRECT_MARGIN * 32)
     p.ld, p.block_rows = ld, block_rows
+    if static.occ_res:
+        p.occ_res = static.occ_res
+        p.occ_w, p.occ_wb = occ_slab_width(static.occ_res, g)
+        p.occ_hi = float(np.float32(static.occ_res - 1e-5))
     return p
 
 
@@ -508,9 +628,10 @@ def _check(coords_s, slot_valid, block_cell, static):
 
 
 def _launch(name, coords_s, slot_valid, block_cell, src, dst, static,
-            lib=None):
+            lib=None, occ=None):
     """Launch entry point ``name`` of ``lib`` (default: the kernels built
-    from ``csrc/paged_hash.cu``) on the current stream."""
+    from ``csrc/paged_hash.cu``) on the current stream; ``occ`` is the
+    packed occupancy grid of B2's occupancy row."""
     if lib is None:
         from shacira_tpu_torch.kernels.build import load
         lib = load('paged_hash')
@@ -521,6 +642,9 @@ def _launch(name, coords_s, slot_valid, block_cell, src, dst, static,
     fn.restype = ctypes.c_int
     ns = coords_s.shape[0]
     params = _kernel_params(static, dst.shape[-1], ns // block_cell.shape[0])
+    if occ is not None:
+        params = _KernelParams.from_buffer_copy(params)
+        params.occ = occ.data_ptr()
     stream = torch.cuda.current_stream(coords_s.device).cuda_stream
     err = fn(coords_s.data_ptr(), slot_valid.data_ptr(),
              block_cell.data_ptr(), src.data_ptr(), dst.data_ptr(), ns,
@@ -535,30 +659,55 @@ def _device_inputs(coords_s, slot_valid, block_cell):
             block_cell.to(torch.int32).contiguous())
 
 
-def paged_gather(coords_s, slot_valid, block_cell, z,
-                 static: PagedStatic) -> torch.Tensor:
-    """B2: [NS, L, ld] f32 latents of ``static.all_lods`` at the slot
-    coords.  CPU tensors take :func:`paged_gather_plain`; CUDA tensors
-    launch the kernel."""
+def _check_occ(static: PagedStatic, occ):
+    if not static.occ_res:
+        return None
+    res = static.occ_res
+    if occ is None or tuple(occ.shape) != (res, res, res // 8 + 1) \
+            or occ.dtype != torch.uint8:
+        raise ValueError(f'the occupancy row needs the packed grid uint8 '
+                         f'[{res}, {res}, {res // 8 + 1}] (pack_occupancy)')
+    return occ.contiguous()
+
+
+def paged_gather(coords_s, slot_valid, block_cell, z, static: PagedStatic,
+                 occ=None) -> torch.Tensor:
+    """B2: [NS, L(+1), ld] f32 latents of ``static.all_lods`` at the slot
+    coords (and the occupancy row, read from ``occ``, when
+    ``static.occ_res``).  CPU tensors take :func:`paged_gather_plain`;
+    CUDA tensors launch the kernel."""
     _check(coords_s, slot_valid, block_cell, static)
+    occ = _check_occ(static, occ)
     if z.device.type == 'cpu':
-        return paged_gather_plain(coords_s, slot_valid, block_cell, z, static)
+        return paged_gather_plain(coords_s, slot_valid, block_cell, z, static,
+                                  occ)
     if z.device.type != 'cuda':
         raise RuntimeError(f'paged_gather: unsupported device {z.device}')
+    out = _launch_gather(coords_s, slot_valid, block_cell, z, static, occ)
+    if out.numel():
+        paged_gather.launches += 1
+        paged_gather.occupancy_launches += occ is not None
+    return out
+
+
+def _launch_gather(coords_s, slot_valid, block_cell, z, static: PagedStatic,
+                   occ=None, lib=None) -> torch.Tensor:
+    """Launch ``paged_gather`` of ``lib`` (default: the kernel built from
+    ``csrc/paged_hash.cu``) into a fresh [NS, L(+1), ld] output."""
     ns, ld = coords_s.shape[0], z.shape[-1]
-    out = torch.empty((ns, len(static.all_lods), ld), dtype=torch.float32,
-                      device=z.device)
+    rows = len(static.all_lods) + (1 if static.occ_res else 0)
+    out = torch.empty((ns, rows, ld), dtype=torch.float32, device=z.device)
     if out.numel() == 0:
-        return out.zero_()
+        return out
     coords_s, slot_valid, block_cell = _device_inputs(coords_s, slot_valid,
                                                       block_cell)
     _launch('paged_gather', coords_s, slot_valid, block_cell,
-            z.to(torch.float32).contiguous(), out, static)
-    paged_gather.launches += 1
+            z.to(torch.float32).contiguous(), out, static, lib, occ)
     return out
 
 
 paged_gather.launches = 0
+paged_gather.occupancy_launches = 0      # those with the occupancy row
 
 
 def paged_scatter(coords_s, slot_valid, block_cell, g,
@@ -599,28 +748,31 @@ paged_scatter.launches = 0
 def reset_launches():
     """Set both wrappers' launch counts to 0."""
     paged_gather.launches = 0
+    paged_gather.occupancy_launches = 0
     paged_scatter.launches = 0
 
 
 class _PagedInterp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, coords_s, slot_valid, block_cell, z, static):
+    def forward(ctx, coords_s, slot_valid, block_cell, z, static, occ):
         ctx.save_for_backward(coords_s, slot_valid, block_cell)
         ctx.static = static
         ctx.z_dtype = z.dtype
-        return paged_gather(coords_s, slot_valid, block_cell, z, static)
+        return paged_gather(coords_s, slot_valid, block_cell, z, static, occ)
 
     @staticmethod
     def backward(ctx, g):
         coords_s, slot_valid, block_cell = ctx.saved_tensors
-        grad = paged_scatter(coords_s, slot_valid, block_cell,
-                             g.contiguous(), ctx.static)
-        return None, None, None, grad.to(ctx.z_dtype), None
+        static = ctx.static
+        # the occupancy row has no gradient: B3 sees the latent rows only
+        g = g[:, :len(static.all_lods)].contiguous()
+        grad = paged_scatter(coords_s, slot_valid, block_cell, g, static)
+        return None, None, None, grad.to(ctx.z_dtype), None, None
 
 
 def paged_interp_lods(coords_s: torch.Tensor, slot_valid: torch.Tensor,
                       block_cell: torch.Tensor, z: torch.Tensor,
-                      static: PagedStatic) -> torch.Tensor:
+                      static: PagedStatic, occ=None) -> torch.Tensor:
     """Interpolate the block-local LODs' latents at slotted sample coords.
 
     Args:
@@ -629,7 +781,11 @@ def paged_interp_lods(coords_s: torch.Tensor, slot_valid: torch.Tensor,
         block_cell: [n_blocks] int32 grouping cell (``n_cells`` for pads).
         z: [total_size, ld] full latent table (only the covered LODs' rows
             are read; the gradient is zero elsewhere).
-    Returns: [NS, len(static.all_lods), ld] f32 in ascending LOD order
-        (invalid slots zero).  Forward B2, backward B3.
+        occ: with ``static.occ_res``, the packed occupancy grid
+            (:func:`pack_occupancy`).
+    Returns: [NS, len(static.all_lods) (+1), ld] f32 in ascending LOD order,
+        then the occupancy row in {0, 1} when ``static.occ_res`` (invalid
+        slots zero).  Forward B2, backward B3.
     """
-    return _PagedInterp.apply(coords_s, slot_valid, block_cell, z, static)
+    return _PagedInterp.apply(coords_s, slot_valid, block_cell, z, static,
+                              occ)

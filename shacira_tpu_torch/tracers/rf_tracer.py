@@ -7,14 +7,18 @@ with a boolean mask (masked samples add no optical thickness); with
 (budgeted stride compaction) and integrated in compact form, the per-ray
 sums running through the scatter kernel (``ops/scatter.segment_sum``).
 
-The paged branch (``segment_size > 0``, ``fine_mode='deferred'``,
-``eval_seg_budget > 0`` and a 3-way ``encode_split``): segments of
-``segment_size`` samples are culled at their midpoint against a dilated
-coarse occupancy grid, compacted twice (``seg_budget``, then
+The paged branch (``segment_size > 0``, ``fine_mode='deferred'`` or
+``'kernel'``, ``eval_seg_budget > 0`` and a 3-way ``encode_split``):
+segments of ``segment_size`` samples are culled at their midpoint against a
+dilated coarse occupancy grid, compacted twice (``seg_budget``, then
 ``eval_seg_budget``), fine-queried, grouped by grouping cell
 (``ops/paged_hash.group_segments``), encoded block-locally on all their
 rows, compacted to ``max_samples`` rows and finished (direct decode, head)
-there.  Budgets and strides stay device tensors: no host sync.
+there.  With ``fine_mode='kernel'`` the per-sample fine query rides the
+encode (kernel B2's occupancy row): grouping keeps the sub-segments whose
+midpoint lies in a dilated fine cell (``occ_state['fine_dil']``), and the
+row compaction runs after the encode, on the occupancy row.  Budgets and
+strides stay device tensors: no host sync.
 
 Integration (exclusive transmittance):
     tau_i = density_i * delta_i * mask_i
@@ -24,13 +28,14 @@ Integration (exclusive transmittance):
 White background: rgb + (1 - alpha); black: alpha * rgb.
 
 The segmented ``'exact'`` march waits for ROADMAP Queue A item 7e, lean
-stage 1, the super-segment cull and transmittance culling for item 9a,
-``fine_mode='kernel'`` for item 9b and the voxel march for item 11; fields
+stage 1, the super-segment cull and transmittance culling for item 9a and
+the voxel march for item 11; fields
 return (rgb, density) only (the JAX tracer's extra per-sample channels have
 no caller on the ported path).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -59,7 +64,7 @@ class RFTracerConfig:
     group_segs_per_block: int = 8  # segments per paged-kernel block
     group_res: int = 8             # grouping cells per axis (page_res // 2)
     group_seg_size: int = 0        # samples per grouped sub-segment (0: G)
-    fine_mode: str = 'exact'       # only 'deferred' is ported
+    fine_mode: str = 'exact'       # 'deferred' or 'kernel' (paged)
     term_tau: float = 0.0          # transmittance culling: not ported
     lean_stage1: bool = False      # not ported
     super_factor: int = 0          # two-level cull: not ported
@@ -73,15 +78,12 @@ class RFTracerConfig:
             raise NotImplementedError(
                 'lean_stage1, super_factor and term_tau are not ported yet '
                 '(ROADMAP Queue A item 9a)')
-        if self.segment_size > 0 and self.fine_mode == 'kernel':
-            raise NotImplementedError(
-                "fine_mode='kernel' (the paged kernel's occupancy row) is "
-                'not ported yet (ROADMAP Queue A item 9b)')
-        if self.segment_size > 0 and self.fine_mode != 'deferred':
+        if self.segment_size > 0 and self.fine_mode not in ('deferred',
+                                                             'kernel'):
             raise NotImplementedError(
                 f"fine_mode={self.fine_mode!r}: the segmented 'exact' march "
                 'is ROADMAP Queue A item 7e; the port runs '
-                "fine_mode='deferred'")
+                "fine_mode='deferred' and 'kernel'")
 
 
 def march_jitter_shape(cfg: RFTracerConfig, num_rays: int):
@@ -327,12 +329,27 @@ def _trace_ray_deferred(occ_state, occ_cfg, cfg: RFTracerConfig, rays: Rays,
                 ray=r_id[:, None].expand(k2, G), valid=valid2)
 
 
+def fine_dilated_occupancy(occ_state: dict,
+                           occ_cfg: occ.OccupancyGridConfig) -> torch.Tensor:
+    """``fine_mode='kernel'``'s grouping grid: the fine occupancy dilated by
+    the direct-LOD slab margin (within which a grouped sub-segment lies of
+    its midpoint) plus one cell; trainers keep it as
+    ``occ_state['fine_dil']``, refreshed once per prune."""
+    radius = int(math.ceil(occ_cfg.res * ph.DIRECT_MARGIN)) + 1
+    return _coarse_dilated_occupancy(occ_state, occ_cfg, occ_cfg.res, radius)
+
+
 def _trace_paged(zbar_fn, finish_fn, head_fn, seg2: dict, cfg: RFTracerConfig,
-                 num_rays: int) -> dict:
+                 num_rays: int, dil_qfn=None) -> dict:
     """Segment-grouped paged trace over stage-2 segments: group the
     fine-live sub-segments by grouping cell, encode all their rows
     block-locally (``zbar_fn``), compact rows to ``max_samples``, finish
-    the features (``finish_fn``) and run the head there, integrate."""
+    the features (``finish_fn``) and run the head there, integrate.
+
+    With ``dil_qfn`` (fine_mode='kernel') ``seg2['fine']`` is only the
+    coarse liveness: grouping keeps the sub-segments whose midpoint passes
+    ``dil_qfn``, ``zbar_fn`` returns ``(zbar, occ [N])`` with the encode's
+    per-sample fine occupancy, and that gates the row compaction."""
     samples2, fine2, valid2 = seg2['samples'], seg2['fine'], seg2['valid']
     k2, g = samples2.shape[0], samples2.shape[1]
     spb = cfg.group_segs_per_block
@@ -343,16 +360,25 @@ def _trace_paged(zbar_fn, finish_fn, head_fn, seg2: dict, cfg: RFTracerConfig,
         centers01 = sub[:, gss // 2, :] * 0.5 + 0.5
         # fully fine-dead sub-segments never reach the head: leave them out
         # of the grouping so they take no kernel blocks
+        if dil_qfn is not None:
+            fine_sub = dil_qfn(sub[:, gss // 2, :])
+        else:
+            fine_sub = fine2.reshape(n_sub, gss).any(dim=-1)
         valid_sub = valid2[:, None].expand(-1, g // gss).reshape(-1) \
-            & fine2.reshape(n_sub, gss).any(dim=-1)
+            & fine_sub
         n_blocks = n_sub // spb + cfg.group_res ** 3
         grouping = ph.group_segments(centers01, valid_sub, spb, n_blocks,
                                      cfg.group_res)
+    if dil_qfn is not None:
+        with record_function('field/paged_encode'):
+            zbar, occ_flat = zbar_fn(samples2.reshape(k2 * g, 3), grouping)
+        fine2 = (occ_flat.reshape(k2, g) > 0.5) & valid2[:, None]
     with record_function('trace/compact'):
         src_idx, k_valid, inv_idx = _stride_compact(fine2.reshape(-1),
                                                     cfg.max_samples)
-    with record_function('field/paged_encode'):
-        zbar = zbar_fn(samples2.reshape(k2 * g, 3), grouping)
+    if dil_qfn is None:
+        with record_function('field/paged_encode'):
+            zbar = zbar_fn(samples2.reshape(k2 * g, 3), grouping)
     with record_function('field/finish'):
         zbar_c = ph.permute_rows(zbar, src_idx, inv_idx)
         feats_c = finish_fn(zbar_c, samples2.reshape(-1, 3)[src_idx])
@@ -377,7 +403,10 @@ def trace(field_fn, occ_state: dict, occ_cfg: occ.OccupancyGridConfig,
             (``segment_size > 0``, ``eval_seg_budget > 0``): ``zbar_fn(
             coords [K*G, 3], grouping)`` returns the block-local latents,
             ``finish_fn(zbar_c, coords_c)`` the features on the compacted
-            rows and ``head_fn(feats, dirs)`` (rgb, density).
+            rows and ``head_fn(feats, dirs)`` (rgb, density).  With
+            ``fine_mode='kernel'`` ``zbar_fn`` returns ``(zbar, occ [K*G])``,
+            the encode's fine occupancy row, and ``occ_state`` holds
+            ``'fine_dil'`` (:func:`fine_dilated_occupancy`).
     Returns: rgb [R,3] (background composited), alpha [R,1], depth [R,1],
         hit [R] bool.
     """
@@ -390,11 +419,27 @@ def trace(field_fn, occ_state: dict, occ_cfg: occ.OccupancyGridConfig,
         if len(encode_split) != 3:
             raise ValueError('the paged trace takes the 3-way encode_split '
                              '(zbar_fn, finish_fn, head_fn)')
+        dil_qfn = None
+        if cfg.fine_mode == 'kernel':
+            # the per-sample fine query comes out of the encode; here only
+            # the dilated fine test of the grouping
+            dil, rc = occ_state['fine_dil'], occ_cfg.res
+
+            def dil_qfn(pts):
+                ci = torch.clamp(torch.floor((pts * 0.5 + 0.5) * rc), 0,
+                                 rc - 1).long()
+                return dil[ci[..., 0], ci[..., 1], ci[..., 2]]
+
+            def fine_qfn(s):
+                return torch.ones(s.shape[:-1], dtype=torch.bool,
+                                  device=s.device)
+        else:
+            def fine_qfn(s):
+                return occ.query(occ_state, occ_cfg, s)
         with record_function('trace/march'):
-            seg2 = _trace_ray_deferred(
-                occ_state, occ_cfg, cfg, rays, jitter,
-                lambda s: occ.query(occ_state, occ_cfg, s))
-        out = _trace_paged(*encode_split, seg2, cfg, R)
+            seg2 = _trace_ray_deferred(occ_state, occ_cfg, cfg, rays, jitter,
+                                       fine_qfn)
+        out = _trace_paged(*encode_split, seg2, cfg, R, dil_qfn=dil_qfn)
         return _composite(out, cfg)
     with record_function('trace/march'):
         m = occ.raymarch_ray(occ_state, occ_cfg, rays, cfg.num_steps, jitter)

@@ -17,7 +17,11 @@ Semantics kept from the JAX package:
     deferred paged trace: grid encode on segment-grouped rows through
     kernels B2/B3, the coarse culling grid refreshed at init and after
     every prune, and evaluation through the same path with eval-mode
-    affine parts.
+    affine parts;
+  * with ``fine_mode='kernel'``, the fine occupancy query as B2's
+    occupancy row: the packed occupancy grid and the dilated fine grid of
+    the grouping are refreshed with the coarse grid, and rendering runs
+    ``fine_mode='deferred'``.
 
 Every random draw of a step (SGA uniforms, rate-loss noise, march jitter)
 is a :class:`StepDraws` argument of :meth:`MultiviewTrainer.step`; the
@@ -158,20 +162,38 @@ class MultiviewTrainer:
                           else optim.adam_init(params))
 
     def _refresh_coarse(self):
-        """Recompute the coarse culling grid of the segmented march (the
-        occupancy changes only at prune time)."""
-        base = {k: v for k, v in self.occ_state.items() if k != 'coarse'}
-        self.occ_state = dict(base, coarse=rf_tracer.coarse_dilated_occupancy(
-            base, self.model_cfg.occ_cfg, self.tracer_cfg))
+        """Recompute the segmented march's grids derived from the occupancy
+        (which changes only at prune time): the coarse culling grid, and
+        with ``fine_mode='kernel'`` the packed occupancy grid of B2's
+        occupancy row and the dilated fine grid of the grouping."""
+        ocfg = self.model_cfg.occ_cfg
+        base = {k: v for k, v in self.occ_state.items()
+                if k not in ('coarse', 'occ_packed', 'fine_dil')}
+        new = dict(base, coarse=rf_tracer.coarse_dilated_occupancy(
+            base, ocfg, self.tracer_cfg))
+        if self.tracer_cfg.fine_mode == 'kernel':
+            new['occ_packed'] = ph.pack_occupancy(base['occ'])
+            new['fine_dil'] = rf_tracer.fine_dilated_occupancy(base, ocfg)
+        self.occ_state = new
 
-    def _encode_split(self, params: dict, parts):
-        """(zbar_fn, finish_fn, head_fn) of the paged trace."""
+    def _encode_split(self, params: dict, parts, kernel_occ: bool = False):
+        """(zbar_fn, finish_fn, head_fn) of the paged trace; with
+        ``kernel_occ`` zbar_fn also returns B2's occupancy row."""
         mcfg, tcfg = self.model_cfg, self.tracer_cfg
         seg_group = tcfg.group_seg_size or tcfg.segment_size
 
-        def zbar_fn(coords, grouping):
-            return nerf_mod.nerf_zbar(mcfg, coords, grouping, seg_group,
-                                      affine=parts)
+        if kernel_occ:
+            ld = mcfg.grid.effective_latent_dim
+
+            def zbar_fn(coords, grouping):
+                zb = nerf_mod.nerf_zbar(mcfg, coords, grouping, seg_group,
+                                        affine=parts,
+                                        occ=self.occ_state['occ_packed'])
+                return zb[:, :-ld], zb[:, -ld]
+        else:
+            def zbar_fn(coords, grouping):
+                return nerf_mod.nerf_zbar(mcfg, coords, grouping, seg_group,
+                                          affine=parts)
 
         def finish_fn(zbar_c, coords_c):
             return nerf_mod.nerf_finish_feats(mcfg, zbar_c, coords_c,
@@ -228,7 +250,8 @@ class MultiviewTrainer:
 
         d = self.dataset
         rays = make_rays(rays_o, rays_d, d.dist_min, d.dist_max)
-        split = self._encode_split(p, parts) if self.use_paged else None
+        split = (self._encode_split(p, parts, tcfg.fine_mode == 'kernel')
+                 if self.use_paged else None)
         rb = rf_tracer.trace(field_fn, self.occ_state, mcfg.occ_cfg, tcfg,
                              rays, draws.march_u, encode_split=split)
         rgb_loss = torch.mean(torch.abs(rb['rgb'] - gt))
@@ -381,6 +404,9 @@ class MultiviewTrainer:
         d = dataset if dataset is not None else self.dataset
         params = params if params is not None else self.params
         mcfg, tcfg = self.model_cfg, self.tracer_cfg
+        if tcfg.fine_mode == 'kernel':
+            # rendering queries the fine occupancy itself
+            tcfg = replace(tcfg, fine_mode='deferred')
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(0)

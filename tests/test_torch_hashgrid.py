@@ -127,12 +127,10 @@ def test_affine_encode_equals_encode_of_decoded_table():
 
 
 def test_paged_layout_is_not_ported():
-    """The paged layout itself is ported (tests/test_torch_paged_hash.py);
-    what is not, the paged kernel's occupancy row, raises, and so does an
-    unknown layout."""
+    """The paged layout is ported (tests/test_torch_paged_hash.py), the
+    paged kernel's occupancy row included; an unknown layout raises."""
     from shacira_tpu_torch.ops import paged_hash as tph
     spec = thg.HashGridSpec((17, 64), 17, 3, hash_layout='paged')
-    with pytest.raises(NotImplementedError):
-        tph.PagedStatic(spec=spec, lods=(1,), occ_res=128)
+    assert tph.PagedStatic(spec=spec, lods=(1,), occ_res=128).occ_res == 128
     with pytest.raises(ValueError):
         thg.HashGridSpec((4,), 8, 3, hash_layout='morton')

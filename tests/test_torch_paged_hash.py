@@ -407,3 +407,178 @@ def test_chain_mirror_counts_the_kernels_atomics_on_card(cuda_device, which,
     assert counted == mirrored
     torch.testing.assert_close(got.cpu(), want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# The occupancy row (fine_mode='kernel')
+# ---------------------------------------------------------------------------
+
+@needs_jax
+@pytest.mark.parametrize('page_res', [16, 32])
+def test_occupancy_window_geometry_matches_jax(page_res):
+    """Window widths and starts (integer arithmetic in 1/32 units, clipped
+    to ``res - w``) equal the JAX kernel's, and its host-side slab starts."""
+    g = tph.group_res_of(page_res)
+    c = np.arange(g)
+    for res in (16, 32, 64, 128, 256):
+        w, wb = tph.occ_slab_width(res, g)
+        assert (w, wb) == jph.occ_slab_width(res, jph.DIRECT_MARGIN, g)
+        got = tph.occ_starts(torch.as_tensor(c), res, g).numpy()
+        want = jph._kernel_occ_starts((jnp.asarray(c),) * 3, res, w, g,
+                                      jph.DIRECT_MARGIN)[0]
+        np.testing.assert_array_equal(got, np.asarray(want))
+        host = np.clip(np.floor((c / g - jph.DIRECT_MARGIN) * res), 0,
+                       res - w)
+        np.testing.assert_array_equal(got, host)
+
+
+def test_page_reciprocal_is_exact():
+    """B2's page axis ``(n * recip) >> 32`` equals ``n // res`` for every
+    numerator below RECIP_NUM_LIMIT and every res up to RECIP_RES_LIMIT
+    (what ``_kernel_params`` admits), and the lego spec lies inside."""
+    n = np.arange(tph.RECIP_NUM_LIMIT, dtype=np.uint64)
+    for lo in range(2, tph.RECIP_RES_LIMIT + 1, 64):
+        res = np.arange(lo, min(lo + 64, tph.RECIP_RES_LIMIT + 1),
+                        dtype=np.uint64)
+        recip = np.asarray([tph.page_recip(int(r)) for r in res], np.uint64)
+        assert (recip < 2 ** 32).all()
+        got = (n[None, :] * recip[:, None]) >> np.uint64(32)
+        np.testing.assert_array_equal(got, n[None, :] // res[:, None])
+    spec = _lego_tspec()
+    params = tph._kernel_params(tph.default_static(spec), 1, 128)
+    assert list(params.recip)[11:24] == [tph.page_recip(r) for r in
+                                         spec.resolutions[11:]]
+
+
+def _occ_blocks(page_res, occ_res, b=32, seed=11):
+    """Blocks of ``b`` slots, one grouping cell each (the cube's corner
+    cells, a middle one, random ones, a pad block), whose points sit on and
+    around the edges of the cell's occupancy window on every axis (z also
+    on its byte edges), outside the window, and outside [-1, 1]^3; ~10 %
+    of the slots invalid.  Returns (coords, valid, block_cell, occupancy
+    grid [res]^3 bool) as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    g = tph.group_res_of(page_res)
+    w, wb = tph.occ_slab_width(occ_res, g)
+    cells = [0, g ** 3 - 1, (g // 2) * (g * g + g + 1),
+             *rng.integers(0, g ** 3, 3), g ** 3]
+    pts = []
+    for c in cells:
+        c3 = np.array([c // (g * g), (c // g) % g, c % g]) % g
+        st = tph.occ_starts(torch.as_tensor(c3), occ_res, g).numpy()
+        axes = []
+        for d in range(3):
+            s = int(st[d])
+            cand = [s - 2, s - 1, s, s + 1, s + w - 2, s + w - 1, s + w,
+                    s + w + 1, -1, 0, occ_res - 1, occ_res]
+            if d == 2:
+                z0 = (s >> 3) * 8
+                cand += [z0 - 1, z0, z0 + 8 * wb - 1, z0 + 8 * wb]
+            axes.append(rng.choice(cand, b))
+        cell = np.stack(axes, -1)
+        pts.append((cell + rng.uniform(0, 1, (b, 3))) / occ_res * 2 - 1)
+    coords = np.concatenate(pts).astype(np.float32)
+    coords[:4] = [[-1, -1, -1], [1, 1, 1], [1.0000001, 0.5, 0.5],
+                  [0.2, -1.0000001, 0.3]]
+    valid = rng.uniform(size=coords.shape[0]) < 0.9
+    occ = rng.uniform(size=(occ_res,) * 3) < 0.4
+    return coords, valid, np.asarray(cells, np.int32), occ
+
+
+@needs_jax
+@pytest.mark.parametrize('page_res,occ_res', [(16, 128), (32, 64)])
+def test_occupancy_row_matches_jax(page_res, occ_res):
+    """The plain occupancy row equals the JAX kernel's
+    (``_kernel_occ_query`` through ``occ_slab_tables``, interpret mode)
+    exactly, window clamps included; the latent rows beside it to 1e-5."""
+    jspec, tspec = _specs(page_res)
+    coords, valid, bc, occ = _occ_blocks(page_res, occ_res)
+    z = np.random.default_rng(12).normal(
+        size=(jspec.total_size, 1)).astype(np.float32)
+    _, direct, pag = jph.blocklocal_lods(jspec)
+    static = jph.PagedStatic(spec=jspec, lods=pag, direct_lods=direct,
+                             interpret=True, use_bf16=False, occ_res=occ_res)
+    slab = jph.occ_slab_tables(jnp.asarray(occ),
+                               group_res=tph.group_res_of(page_res))
+    want = np.asarray(jax.jit(lambda zz: jph._paged_fwd_impl(
+        jnp.asarray(coords), jnp.asarray(valid), jnp.asarray(bc), None, zz,
+        slab, static))(jnp.asarray(z)))
+    got = tph.paged_gather(
+        torch.as_tensor(coords), torch.as_tensor(valid),
+        torch.as_tensor(bc), torch.as_tensor(z),
+        tph.default_static(tspec, occ_res),
+        tph.pack_occupancy(torch.as_tensor(occ))).numpy()
+    assert got.shape == want.shape == (coords.shape[0], len(RES) + 1, 1)
+    np.testing.assert_array_equal(got[:, -1], want[:, -1])
+    assert 0.05 < want[:, -1].mean() < 0.5
+    np.testing.assert_allclose(got[:, :-1], want[:, :-1], rtol=0, atol=1e-5)
+    # inside its window a slot reads the grid's own occupancy; the clamps
+    # bind on some slots
+    from shacira_tpu_torch.accel import occupancy as tocc
+    query = tocc.query({'occ': torch.as_tensor(occ)},
+                       tocc.OccupancyGridConfig(int(np.log2(occ_res))),
+                       torch.as_tensor(coords)).numpy() & valid
+    live = np.repeat(bc < tph.group_res_of(page_res) ** 3, 32)
+    assert 0 < int(((query != got[:, -1, 0]) & live).sum()) < live.sum() / 2
+
+
+def test_occupancy_row_takes_no_gradient():
+    """The occupancy row reaches no table gradient: the backward hands B3
+    the latent rows' gradient only."""
+    tspec = _tspec(16)
+    coords, valid, bc, occ = _occ_blocks(16, 64)
+    z = torch.as_tensor(np.random.default_rng(13).normal(
+        size=(tspec.total_size, 1)).astype(np.float32)).requires_grad_(True)
+    args = (torch.as_tensor(coords), torch.as_tensor(valid),
+            torch.as_tensor(bc))
+    out = tph.paged_interp_lods(*args, z, tph.default_static(tspec, 64),
+                                tph.pack_occupancy(torch.as_tensor(occ)))
+    r = torch.as_tensor(np.random.default_rng(14).normal(
+        size=tuple(out.shape)).astype(np.float32))
+    (grad,) = torch.autograd.grad(out, z, r)
+    want = tph.paged_scatter_plain(*args, r[:, :-1],
+                                   tph.default_static(tspec))
+    assert float(out[:, -1].detach().sum()) > 0
+    torch.testing.assert_close(grad, want, rtol=0, atol=0)
+
+
+def test_occupancy_row_needs_the_packed_grid():
+    tspec = _tspec(16)
+    coords, valid, bc, occ = _occ_blocks(16, 64)
+    args = (torch.as_tensor(coords), torch.as_tensor(valid),
+            torch.as_tensor(bc), torch.zeros((tspec.total_size, 1)),
+            tph.default_static(tspec, 64))
+    with pytest.raises(ValueError, match='pack_occupancy'):
+        tph.paged_gather(*args)
+    with pytest.raises(ValueError, match='pack_occupancy'):
+        tph.paged_gather(*args, torch.as_tensor(occ))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('which,occ_res,b', [('small16', 128, 32),
+                                             ('small32', 64, 20),
+                                             ('lego', 128, 128),
+                                             ('lego', 128, 44)])
+def test_gather_kernel_occupancy_row_on_card(cuda_device, which, occ_res, b):
+    """B2 with its occupancy row against the plain version on the card:
+    the occupancy row exactly, the latent rows to 1e-5 of the largest
+    value; on blocks of 20 and 44 slots (not a multiple of 32) too."""
+    tspec = _lego_tspec() if which == 'lego' else _tspec(int(which[5:]))
+    coords, valid, bc, occ = _occ_blocks(tspec.page_res, occ_res, b=b)
+    static = tph.default_static(tspec, occ_res)
+    z = torch.as_tensor(np.random.default_rng(15).normal(
+        size=(tspec.total_size, 2)).astype(np.float32), device=cuda_device)
+    args = tuple(torch.as_tensor(a, device=cuda_device)
+                 for a in (coords, valid, bc)) + (z, static)
+    packed = tph.pack_occupancy(torch.as_tensor(occ, device=cuda_device))
+    before = tph.paged_gather.launches
+    got = tph.paged_gather(*args, packed)
+    want = tph.paged_gather_plain(*args, packed)
+    torch.cuda.synchronize()
+    assert tph.paged_gather.launches == before + 1
+    assert got.shape == want.shape == (coords.shape[0],
+                                       len(static.all_lods) + 1, 2)
+    assert torch.equal(got[:, -1], want[:, -1])
+    assert 0.05 < float(want[:, -1].mean()) < 0.5
+    torch.testing.assert_close(got[:, :-1], want[:, :-1], rtol=0,
+                               atol=1e-5 * float(want.abs().max()))

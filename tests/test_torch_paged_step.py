@@ -19,7 +19,6 @@ unchanged) so the comparison is f32 against f32.  Tolerances:
   by corner adds) into differences of up to ~2e-4 lr.
 """
 import os
-from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -321,7 +320,8 @@ def test_config_reads_the_paged_lego_flags_like_the_jax_package():
 
 
 @pytest.mark.parametrize('flags,item', [
-    (['--fine-mode', 'kernel'], '9b'), (['--fine-mode', 'exact'], '7e'),
+    (['--fine-mode', 'kernel', '--lean-stage1', 'true'], '9a'),
+    (['--fine-mode', 'exact'], '7e'),
     (['--lean-stage1', 'true'], '9a'), (['--super-factor', '2'], '9a'),
     (['--term-tau', '11.5'], '9a')])
 def test_unported_paged_modes_raise_naming_their_item(flags, item):
@@ -329,9 +329,3 @@ def test_unported_paged_modes_raise_naming_their_item(flags, item):
     args = tconfig.parse_args(tconfig.build_nerf_parser(), argv)
     with pytest.raises(NotImplementedError, match=f'item {item}'):
         tconfig.build_tracer_config(args)
-
-
-def test_kernel_occupancy_row_raises():
-    _, tm = _model_cfgs()
-    with pytest.raises(NotImplementedError, match='item 9b'):
-        replace(trt.ph.default_static(tm.grid.spec), occ_res=128)
