@@ -26,7 +26,9 @@ Phases, each of which must pass (exit code 1 otherwise):
                and the distinct addresses per tile or kernel block;
 3. parity   -- one small training step on the card against the same step of
                the port on the CPU (plain versions), same params and draws,
-               on the flat layout and on the paged layout;
+               on the flat layout (dense march, segmented 'exact' march)
+               and on the paged layout (deferred and 'exact' marches, the
+               sustained setting of phase 8);
 4. lego     -- read configs/nerf_lego.yaml with the port's config reader and
                train at full lego width (4096 rays x 2048 steps, 1,048,576
                compacted samples, 24 LODs at 2^19, hidden 128, bf16 head) on
@@ -46,7 +48,22 @@ Phases, each of which must pass (exit code 1 otherwise):
 7. kernel   -- the paged run again with ``--fine-mode kernel``: the fine
                occupancy query rides B2 as its occupancy row, which every
                training step must launch (the prune and the evaluation run
-               B2 without it); then its profile.
+               B2 without it); then its profile;
+8. sustained -- the paged run in the JAX bench's headline setting
+               (``SUSTAINED_FLAGS``: lean stage 1, two-level cull,
+               term_tau 11.5, adaptive budgets from 8192): two prunes with
+               the adapted budgets, probe fractions and occupancy logged
+               after each, a profile after the second, steps 204-299 timed
+               against steps 2-99, one view evaluated; B1(b), B2 and B3
+               must have launched, the lean march and the two-level cull
+               run every step, every budget sit on its ladder at or below
+               its base; then 13 steps at the budgets a quarter of the
+               probed fractions gives (other B2/B3 launch shapes), and a
+               profile before the first prune;
+9. modes    -- 3 full-width steps each of the flat segmented 'exact'
+               march, the paged 'exact' march and the paged run with
+               --random-lod, from the app's flags: B1(a) and B1(b), or
+               B1(b), B2 and B3, every step.
 
 The second-to-last lines are the card's name and power limit and the
 kernels JSON; the last line is the result JSON.  Exits non-zero without
@@ -301,17 +318,23 @@ PAGED_FLAGS = ['--hash-layout', 'paged', '--page-res', '16',
                '--seg-dilation', '2', '--seg-budget', '32768',
                '--eval-seg-budget', '24576', '--group-segs-per-block', '8',
                '--fine-mode', 'deferred', '--max-samples', '262144']
+# the JAX bench's headline setting (bench.py's stage nerf_sustained): lean
+# stage 1, the two-level cull, transmittance culling, adaptive budgets
+SUSTAINED_FLAGS = ['--term-tau', '11.5', '--lean-stage1', 'true',
+                   '--super-factor', '4', '--adaptive-budget', 'true',
+                   '--min-budget', '8192']
 SCENE_DIST = (0.8, 4.4)   # ray bounds of the analytic scene below
 OCC_RES = 128             # the lego config's occupancy grid (blas_level 7)
 
 
-def lego_args(dev, paged: bool, prune_every=None, fine_mode='deferred'):
+def lego_args(dev, paged: bool, prune_every=None, fine_mode='deferred',
+              extra=()):
     """The lego config as the app parses it (flat or paged layout, the
-    paged one with ``fine_mode``)."""
+    paged one with ``fine_mode`` and the flags ``extra``)."""
     from shacira_tpu_torch import config as cfg_mod
     flags = [fine_mode if f == 'deferred' else f for f in PAGED_FLAGS]
     argv = ['--config', os.path.join(ROOT, 'configs', 'nerf_lego.yaml'),
-            '--device', dev] + (flags if paged else [])
+            '--device', dev] + (flags if paged else []) + list(extra)
     if prune_every is not None:
         argv += ['--prune-every', str(prune_every)]
     return cfg_mod.parse_args(cfg_mod.build_nerf_parser(), argv)
@@ -618,23 +641,37 @@ def sphere_scene(num_views: int, res: int):
                          dist_max=SCENE_DIST[1])
 
 
-def _parity_cfgs(paged: bool):
-    """Small flat or paged model and tracer configs for the parity step."""
+PARITY_MARCHES = {
+    # flat layout: the dense march, and the segmented 'exact' one
+    'flat': dict(num_steps=128, max_samples=16384),
+    'flat exact': dict(num_steps=128, max_samples=16384, segment_size=16,
+                       seg_budget=1024, seg_dilation=3, fine_mode='exact'),
+    # paged layout: the deferred march, and the sustained setting (lean
+    # stage 1, two-level cull, transmittance culling)
+    'paged': dict(num_steps=512, max_samples=4096, segment_size=8,
+                  seg_budget=2048, coarse_level=4, seg_dilation=2,
+                  eval_seg_budget=512, group_segs_per_block=4,
+                  fine_mode='deferred')}
+PARITY_MARCHES['paged exact'] = dict(PARITY_MARCHES['paged'],
+                                     fine_mode='exact')
+PARITY_MARCHES['paged sustained'] = dict(
+    PARITY_MARCHES['paged'], lean_stage1=True, super_factor=4, term_tau=11.5)
+
+
+def _parity_cfgs(march: str):
+    """Small model and tracer configs of the parity step ``march`` (a key
+    of ``PARITY_MARCHES``)."""
     from shacira_tpu_torch.models.grids.latent_grid import LatentGridConfig
     from shacira_tpu_torch.models.nefs.nerf import NeuralRadianceFieldConfig
     from shacira_tpu_torch.tracers.rf_tracer import RFTracerConfig
+    paged = march.startswith('paged')
+    tcfg = RFTracerConfig(**PARITY_MARCHES[march])
     if paged:       # 3 direct LODs (17..40) and 2 paged ones (62, 97)
         grid = dict(num_lods=5, min_grid_res=16, max_grid_res=96,
                     codebook_bitwidth=17, hash_layout='paged', page_res=16)
-        tcfg = RFTracerConfig(num_steps=512, max_samples=4096,
-                              segment_size=8, seg_budget=2048,
-                              coarse_level=4, seg_dilation=2,
-                              eval_seg_budget=512, group_segs_per_block=4,
-                              fine_mode='deferred')
     else:
         grid = dict(num_lods=6, min_grid_res=4, max_grid_res=64,
                     codebook_bitwidth=12)
-        tcfg = RFTracerConfig(num_steps=128, max_samples=16384)
     grid = LatentGridConfig.from_geometric(
         feature_dim=4, latent_dim=1, multiscale_type='cat', feature_std=0.02,
         entropy_enabled=True, num_prob_layers=1, **grid
@@ -646,14 +683,16 @@ def _parity_cfgs(paged: bool):
     return mcfg, tcfg
 
 
-def phase_parity(dev, paged: bool):
-    """One small step on the card against the same step on the CPU."""
+def phase_parity(dev, march: str):
+    """One small step on the card against the same step on the CPU, with
+    the march ``march`` (a key of ``PARITY_MARCHES``)."""
     import torch
     from shacira_tpu_torch import optim
     from shacira_tpu_torch.trainers.multiview_trainer import (
         MultiviewTrainer, MultiviewTrainerConfig, StepDraws)
     data = sphere_scene(4, 24)
-    mcfg, tcfg = _parity_cfgs(paged)
+    mcfg, tcfg = _parity_cfgs(march)
+    paged = march.startswith('paged')
     cfg = MultiviewTrainerConfig(epochs=10, prune_every=-1)
     cpu = MultiviewTrainer(cfg, mcfg, tcfg, data, num_rays=256, device='cpu')
     gpu = MultiviewTrainer(cfg, mcfg, tcfg, data, num_rays=256, device=dev)
@@ -681,7 +720,7 @@ def phase_parity(dev, paged: bool):
         rel = float((m.cpu() - mu_c[path]).abs().max()) / scale
         if rel >= worst:
             worst, worst_path = rel, '/'.join(path)
-    log(f'  small {"paged" if paged else "flat"} step card vs CPU: loss '
+    log(f'  small {march} step card vs CPU: loss '
         f'{loss_g:.7f} vs {loss_c:.7f}, Adam first moment max rel diff '
         f'{worst:.3e} ({worst_path})')
     # float atomics and other summation orders: rtol 1e-4 on the loss and
@@ -819,6 +858,255 @@ def phase_lego(dev, prune_every, paged: bool = False, fine_mode='deferred'):
     return result, launches, trainer, args, data
 
 
+def _on_ladder(v: int) -> bool:
+    """``v`` is 2^k or 1.5 * 2^k (the adaptive budgets' rungs)."""
+    def pow2(x):
+        return x > 0 and x & (x - 1) == 0
+    return pow2(v) or (v % 3 == 0 and pow2(v // 3))
+
+
+BUDGETS = ('max_samples', 'seg_budget', 'eval_seg_budget')
+
+
+def phase_sustained(dev, prune_every):
+    """The paged lego config in the JAX bench's headline setting
+    (``PAGED_FLAGS`` + ``SUSTAINED_FLAGS``) from the app's config code:
+    steps 1-200 across two prunes, each followed by the budget adaptation;
+    the budgets, probe fractions and occupancy logged after each prune;
+    steps 201-203 profiled (after the second prune, at the adapted
+    budgets), steps 204-299 timed against steps 2-99 (before the first
+    prune, at the base budgets); one view evaluated.  Launch counts are
+    zeroed before and read after; B1(b), B2 and B3 must have launched in
+    training, B2 also in the prune and in the evaluation; the lean march
+    and the two-level cull must have run every step.  Then steps 300-313
+    at shrunk budgets (:func:`_shrunk_budget_steps`)."""
+    import torch
+    from shacira_tpu_torch.apps.train_nerf import build_trainer
+    from shacira_tpu_torch.tracers import rf_tracer
+    args = lego_args(dev, True, prune_every, 'deferred', SUSTAINED_FLAGS)
+    if args.prune_every < 5:
+        raise ValueError('the sustained phase needs prune_every >= 5')
+    data = sphere_scene(num_views=24, res=SCENE_RES)
+    trainer = build_trainer(args, data)
+    base = trainer.tracer_cfg
+    if not (trainer.use_paged and base.lean_stage1 and base.super_factor == 4
+            and base.term_tau == 11.5 and base.super_dilation > 0
+            and trainer.cfg.adaptive_budget):
+        raise AssertionError(f'the sustained trainer took the wrong path: '
+                             f'{base}')
+    # count the lean march and the two-level cull where the trace calls them
+    calls = {'_trace_ray_deferred_lean': 0, '_lean_src2_two_level': 0}
+    originals = {name: getattr(rf_tracer, name) for name in calls}
+    for name in calls:
+        def counted(*a, _fn=originals[name], _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        setattr(rf_tracer, name, counted)
+    try:
+        return _drive_sustained(trainer, args, base, calls) + (args,)
+    finally:
+        for name, fn in originals.items():
+            setattr(rf_tracer, name, fn)
+
+
+def _drive_sustained(trainer, args, base, calls):
+    """The training, profile and evaluation of :func:`phase_sustained`."""
+    import torch
+    from shacira_tpu_torch.tracers import rf_tracer
+    # record the probe fractions the adaptation reads
+    probes = []
+    for name in ('_occupied_sample_fraction', '_live_segment_fraction'):
+        def recorded(*a, _fn=getattr(trainer, name), _name=name, **k):
+            v = _fn(*a, **k)
+            probes.append((_name, v))
+            return v
+        setattr(trainer, name, recorded)
+    entries, prunes = [], []
+
+    def timed(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(num_iterations=n, log_fn=lambda e: entries.append(e)
+                      if 'iteration' in e else None)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n
+
+    def after_prune():
+        """The refreshed grids, budgets and probes of the prune just run."""
+        o = trainer.occ_state
+        raw = {k: o[k] for k in ('occ', 'density')}
+        ocfg = trainer.model_cfg.occ_cfg
+        if not (torch.equal(o['coarse2'], rf_tracer.coarse_packed_grid(
+                raw, ocfg, base)) and torch.equal(o['super'], rf_tracer.
+                                                   super_grid(raw, ocfg,
+                                                              base))):
+            raise AssertionError("'coarse2' / 'super' not refreshed")
+        act = trainer.active_tracer_cfg
+        rec = {'iteration': trainer.iteration,
+               'occupancy': entries[-1]['occupancy'],
+               'sample_budget_logged': entries[-1].get('sample_budget'),
+               **{f: getattr(act, f) for f in BUDGETS},
+               **{f'base_{f}': getattr(base, f) for f in BUDGETS},
+               **dict(probes[-2:])}
+        prunes.append(rec)
+        log('  after prune: ' + json.dumps(rec))
+        if not all(_on_ladder(getattr(act, f))
+                   and getattr(act, f) <= getattr(base, f) for f in BUDGETS):
+            raise AssertionError(f'budgets off the ladder or above base: '
+                                 f'{rec}')
+        if rec['sample_budget_logged'] != act.max_samples:
+            raise AssertionError('the log entry misses the sample budget')
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    first_s = timed(1)
+    block_s = timed(args.prune_every - 2)
+    before_prune = _launch_counts()
+    prune_s = timed(1)
+    in_prune_step = _delta(_launch_counts(), before_prune)
+    after_prune()
+    between_s = timed(args.prune_every)
+    after_prune()
+    steps_before_profile = trainer.iteration
+    lean_calls = dict(calls)
+    launches_train = _launch_counts()
+    log('phase sustained profile:')
+    prof = phase_profile(trainer, 3, 'sustained, after the second prune',
+                         between_s * 1e3)
+    n_after = 3 * args.prune_every - 1 - trainer.iteration
+    after_s = timed(n_after)
+    # the idle share against the adapted steps timed without the profiler
+    prof['unprofiled_step_ms'] = after_s * 1e3
+    prof['device_idle_share'] = 1.0 - prof['device_busy_ms_per_step'] / (
+        after_s * 1e3)
+    log(f'  sustained profile against steps {trainer.iteration - n_after + 1}'
+        f'-{trainer.iteration} ({after_s * 1e3:.3f} ms a step): device idle '
+        f'share {prof["device_idle_share"]:.4f}')
+    before_eval = _launch_counts()
+    metrics = trainer.evaluate(view_indices=[0])
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    in_eval = _delta(launches, before_eval)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    result = {
+        'layout': 'paged', 'setting': 'sustained',
+        'steps': trainer.iteration, 'first_step_ms': first_s * 1e3,
+        'mean_step_ms': block_s * 1e3,
+        'mean_step_ms_of_steps': [2, args.prune_every - 1],
+        'prune_step_ms': prune_s * 1e3,
+        'mean_step_ms_between_prunes': between_s * 1e3,
+        'mean_step_ms_adapted': after_s * 1e3,
+        'mean_step_ms_adapted_of_steps': [trainer.iteration - n_after + 1,
+                                          trainer.iteration],
+        'rays_per_s': args.num_rays_sampled_per_img / block_s,
+        'rays_per_s_adapted': args.num_rays_sampled_per_img / after_s,
+        'loss_first': entries[0]['loss'], 'loss_last': entries[-1]['loss'],
+        'psnr_first': entries[0]['psnr'], 'psnr_last': entries[-1]['psnr'],
+        'prunes': prunes, 'eval_psnr_view0': metrics['psnr'],
+        'peak_mem_gb': peak_gb, 'launches': launches,
+        'launches_in_prune_step': in_prune_step, 'launches_in_eval': in_eval,
+        'lean_march_calls': lean_calls}
+    log('  sustained: ' + json.dumps(result))
+    if not all(math.isfinite(e['loss']) for e in entries):
+        raise AssertionError('non-finite training loss')
+    if not entries[-1]['loss'] < entries[0]['loss']:
+        raise AssertionError('training loss did not fall')
+    if not math.isfinite(metrics['psnr']):
+        raise AssertionError('non-finite evaluation PSNR')
+    # every training step ran the lean march through the two-level cull
+    if not (lean_calls['_trace_ray_deferred_lean']
+            == lean_calls['_lean_src2_two_level'] == steps_before_profile):
+        raise AssertionError(f'lean / two-level calls {lean_calls} in '
+                             f'{steps_before_profile} steps')
+    for wrapper in ('segment_sum', 'paged_gather', 'paged_scatter'):
+        if launches_train[wrapper] < steps_before_profile:
+            raise AssertionError(f'{wrapper} did not launch every step: '
+                                 f'{launches_train}')
+    if in_prune_step['paged_gather'] != 2:
+        raise AssertionError(f'B2 did not run in the prune: {in_prune_step}')
+    if in_eval['paged_gather'] < 1 or in_eval['paged_scatter'] != 0:
+        raise AssertionError(f'eval did not go through B2: {in_eval}')
+    result['shrunk'] = _shrunk_budget_steps(trainer, base, probes, timed)
+    return result, launches
+
+
+def _shrunk_budget_steps(trainer, base, probes, timed):
+    """After the third prune: the budgets that the adaptation gives for a
+    quarter of the last probed fractions (a sparser scene), 10 steps timed
+    and 3 profiled there, so that B1(b), B2 and B3 run at launch shapes
+    other than the base budgets' in the same process."""
+    from dataclasses import replace
+
+    from shacira_tpu_torch.trainers.multiview_trainer import adapted_budgets
+    timed(1)                                      # step 300 and its prune
+    fr = dict(probes[-2:])
+    shrunk = adapted_budgets(
+        base, trainer.num_rays, fr['_occupied_sample_fraction'] / 4,
+        fr['_live_segment_fraction'] / 4, trainer.cfg.min_budget,
+        trainer.cfg.budget_headroom)
+    trainer.active_tracer_cfg = replace(base, **shrunk)
+    before = _launch_counts()
+    step_s = timed(10)
+    prof = phase_profile(trainer, 3, f'sustained, budgets {shrunk}',
+                         step_s * 1e3)
+    ran = _delta(_launch_counts(), before)
+    out = {'budgets': shrunk, 'mean_step_ms': step_s * 1e3,
+           'device_busy_ms_per_step': prof['device_busy_ms_per_step'],
+           'launches': ran}
+    log('  shrunk budgets: ' + json.dumps(out))
+    if not all(_on_ladder(v) and v < getattr(base, f)
+               for f, v in shrunk.items()):
+        raise AssertionError(f'a quarter of the fractions left a budget '
+                             f'at its base: {shrunk}')
+    if not all(ran[w] == 13 for w in ('segment_sum', 'paged_gather',
+                                      'paged_scatter')):
+        raise AssertionError(f'launches at the shrunk budgets: {ran}')
+    return out
+
+
+# other march modes and options from the app's flags: (paged, fine mode,
+# extra flags)
+MODES = {'flat exact': (False, None, ['--segment-size', '16',
+                                      '--fine-mode', 'exact']),
+         'paged exact': (True, 'exact', []),
+         'paged random_lod': (True, 'deferred', ['--random-lod', 'true'])}
+
+
+def phase_modes(dev):
+    """Each of ``MODES`` at full lego width through the app's config code:
+    3 training steps, counts zeroed before and read after; the flat modes
+    must launch B1(a) and B1(b), the paged ones B1(b), B2 and B3, every
+    step."""
+    import torch
+    from shacira_tpu_torch.apps.train_nerf import build_trainer
+    data = sphere_scene(num_views=24, res=SCENE_RES)
+    launches = {}
+    for name, (paged, fine_mode, extra) in MODES.items():
+        args = lego_args(dev, paged, None, fine_mode or 'deferred', extra)
+        trainer = build_trainer(args, data)
+        tcfg = trainer.tracer_cfg
+        if (trainer.use_paged != paged or tcfg.fine_mode != args.fine_mode
+                or trainer.cfg.random_lod != args.random_lod):
+            raise AssertionError(f'{name}: the trainer took the wrong path')
+        entries = []
+        _reset_launches()
+        trainer.train(num_iterations=3, log_fn=entries.append)
+        torch.cuda.synchronize()
+        launches[name] = _launch_counts()
+        log(f'  {name}: segment_size {tcfg.segment_size}, fine_mode '
+            f'{tcfg.fine_mode}, random_lod {trainer.cfg.random_lod}, loss '
+            f'{entries[-1]["loss"]:.6f}, launches {launches[name]}')
+        want = (('segment_sum', 'paged_gather', 'paged_scatter') if paged
+                else ('scatter_add', 'segment_sum'))
+        if not (math.isfinite(entries[-1]['loss'])
+                and all(launches[name][w] == 3 for w in want)):
+            raise AssertionError(f'{name}: loss {entries[-1]["loss"]}, '
+                                 f'launches {launches[name]}')
+        del trainer
+        torch.cuda.empty_cache()
+    return launches
+
+
 RANGES = ('step/draws', 'step/decode', 'trace/march', 'trace/group',
           'trace/compact', 'field/encode', 'field/paged_encode',
           'field/finish', 'field/head', 'trace/integrate', 'step/rate_loss',
@@ -910,29 +1198,43 @@ def main(argv=None) -> int:
     rows = phase_kernels(dev)
     rows.update(phase_paged_kernels(dev))
     log('phase parity:')
-    phase_parity(dev, paged=False)
-    phase_parity(dev, paged=True)
+    for march in PARITY_MARCHES:
+        phase_parity(dev, march)
     from shacira_tpu_torch.apps.train_nerf import build_trainer
     launches = {}
     for name, paged, fine_mode in (('lego', False, None),
                                    ('paged', True, 'deferred'),
                                    ('kernel', True, 'kernel')):
         log(f'phase {name}:')
-        result, launches[name], trainer, lego_args, data = phase_lego(
+        result, launches[name], trainer, run_args, data = phase_lego(
             'cuda', args.prune_every, paged, fine_mode)
         log(f'phase {name} profile:')
         phase_profile(trainer, 3, f'{name}, after the prune',
                       result['mean_step_ms_after_prune'])
         del trainer
-        fresh = build_trainer(lego_args, data)
+        fresh = build_trainer(run_args, data)
         fresh.train(num_iterations=1)
         phase_profile(fresh, 3, f'{name}, before the first prune',
                       result['mean_step_ms'])
         del fresh
         torch.cuda.empty_cache()
+    log('phase sustained:')
+    result, launches['sustained'], run_args = phase_sustained(
+        'cuda', args.prune_every)
+    torch.cuda.empty_cache()
+    fresh = build_trainer(run_args, sphere_scene(num_views=24,
+                                                 res=SCENE_RES))
+    fresh.train(num_iterations=1)
+    phase_profile(fresh, 3, 'sustained, before the first prune',
+                  result['mean_step_ms'])
+    del fresh
+    torch.cuda.empty_cache()
+    log('phase modes:')
+    launches.update(phase_modes('cuda'))
     # each kernel's launches come from the path it serves: B1 from the flat
     # lego run, B2 and B3 from the paged one (which also runs B1(b)), B2
-    # with its occupancy row from the 'kernel' run
+    # with its occupancy row from the 'kernel' run; launches_by_path adds
+    # the other runs, the sustained one among them
     # (row name, wrapper count it reports, path); the ray-ordered row times
     # the same wrapper as scatter_add on the step's sample order
     path_of = (('scatter_add', 'scatter_add', 'lego'),
@@ -960,7 +1262,7 @@ def main(argv=None) -> int:
                         'library_ms': row['library_ms'],
                         **{c: row[c] for c in counts if c in row}})
     missing = [k['name'] for k in kernels if k['launches'] <= 0]
-    for path in ('paged', 'kernel'):
+    for path in ('paged', 'kernel', 'sustained'):
         for wrapper in ('segment_sum', 'paged_gather', 'paged_scatter'):
             if launches[path][wrapper] <= 0:
                 missing.append(f'{wrapper} ({path} path)')

@@ -5,8 +5,9 @@ as YAML sections; a YAML file given with ``--config`` sets parser defaults
 (explicit CLI flags win) with one level of ``parent:`` inheritance, and an
 unknown key raises.  The flag surface is the JAX package's, so
 ``configs/nerf_base.yaml`` and ``configs/nerf_lego.yaml`` load as they are.
-Options whose code path is not ported yet raise ``NotImplementedError``
-naming their ROADMAP item; ``--rng-impl`` selects a JAX generator and is
+Options whose code path is not ported yet (checkpoints, other grid types
+and decoders, the voxel march) raise ``NotImplementedError`` naming their
+ROADMAP item; ``--rng-impl`` selects a JAX generator and is
 accepted without effect (the port draws from one ``torch.Generator``).
 """
 from __future__ import annotations
@@ -277,10 +278,6 @@ def build_nerf_model_config(args):
 def build_nerf_trainer_config(args):
     from shacira_tpu_torch.trainers.multiview_trainer import (
         MultiviewTrainerConfig)
-    if args.adaptive_budget:
-        _not_ported('adaptive_budget', 'Queue A item 7d')
-    if args.random_lod:
-        _not_ported('random_lod', 'Queue A item 7d')
     if args.resume or args.pretrained:
         _not_ported('checkpoint resume / pretrained', 'Queue A item 7a')
     if 0 < args.save_every <= args.epochs:
@@ -298,13 +295,15 @@ def build_nerf_trainer_config(args):
         decay_period=args.decay_period, temperature=args.temperature,
         entropy_reg=args.entropy_reg, entropy_reg_end=args.entropy_reg_end,
         entropy_reg_sched=args.entropy_reg_sched, noise_freq=args.noise_freq,
-        prune_every=args.prune_every, chunk_size=args.chunk_size,
-        valid_every=args.valid_every)
+        prune_every=args.prune_every, random_lod=args.random_lod,
+        adaptive_budget=args.adaptive_budget,
+        budget_headroom=args.budget_headroom, min_budget=args.min_budget,
+        chunk_size=args.chunk_size, valid_every=args.valid_every)
 
 
 def build_tracer_config(args):
-    """Tracer config; the modes not ported yet raise in
-    ``RFTracerConfig``, naming their ROADMAP item."""
+    """Tracer config; the voxel march, not ported yet, raises in
+    ``RFTracerConfig``, naming its ROADMAP item."""
     from shacira_tpu_torch.tracers.rf_tracer import RFTracerConfig
     return RFTracerConfig(
         raymarch_type=args.raymarch_type, num_steps=args.num_steps,

@@ -1,8 +1,28 @@
 """Hyper-parameter decay schedules (entropy weight, SGA temperature, decoder
-lr warm-up).  Port of ``shacira_tpu/core/schedulers.py``; host-side numpy."""
+lr warm-up) and the LOD-growth curriculum.  Port of
+``shacira_tpu/core/schedulers.py``; host-side numpy."""
 from __future__ import annotations
 
 import numpy as np
+
+
+def grow_loss_lods(epoch: int, num_lods: int, grow_every: int,
+                   growth_strategy: str):
+    """LOD indices trained at ``epoch`` under the growth curriculum: one
+    stage more every ``grow_every`` epochs; 'onebyone', 'increase',
+    'shrink', 'finetocoarse' or 'onlylast'."""
+    stage = min(num_lods, epoch // grow_every + 1)        # 1-indexed
+    if growth_strategy == 'onebyone':
+        return [stage - 1]
+    if growth_strategy == 'increase':
+        return list(range(stage))
+    if growth_strategy == 'shrink':
+        return list(range(num_lods))[stage - 1:]
+    if growth_strategy == 'finetocoarse':
+        return list(range(num_lods))[num_lods - stage:]
+    if growth_strategy == 'onlylast':
+        return [num_lods - 1]
+    raise NotImplementedError(growth_strategy)
 
 
 def schedule(name: str, steps, total_steps: int, start: float, end: float,

@@ -143,11 +143,13 @@ def interpolate(params: dict, cfg: LatentGridConfig, coords: torch.Tensor, *,
                 use_sga: bool = False, temperature: float = 1.0,
                 sga_u: Optional[torch.Tensor] = None,
                 decoded: Optional[torch.Tensor] = None,
-                affine=None) -> torch.Tensor:
+                affine=None,
+                lod_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Multiscale features at ``coords`` [..., dim] -> [..., output_dim].
 
     ``affine`` (z, matrix, shift) takes the fused encode; else ``decoded``
-    (a pre-decoded feature table) or a fresh decode of the codebook."""
+    (a pre-decoded feature table) or a fresh decode of the codebook.
+    ``lod_mask`` [num_lods] 0/1 scales each LOD's features."""
     lead = coords.shape[:-1]
     coords = coords.reshape(-1, coords.shape[-1])
     if affine is not None:
@@ -158,11 +160,18 @@ def interpolate(params: dict, cfg: LatentGridConfig, coords: torch.Tensor, *,
             decoded = decode_codebook(params, cfg, use_sga=use_sga,
                                       temperature=temperature, sga_u=sga_u)
         feats = hash_encode(coords, decoded, cfg.spec)    # [N, L, F]
+    feats = _mask_lods(feats, lod_mask)
     if cfg.multiscale_type == 'cat':
         out = feats.reshape(feats.shape[0], -1)
     else:
         out = feats.sum(dim=1)
     return out.reshape(*lead, out.shape[-1])
+
+
+def _mask_lods(feats: torch.Tensor,
+               lod_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """[N, L, F] features with LOD ``l`` scaled by ``lod_mask[l]``."""
+    return feats if lod_mask is None else feats * lod_mask[None, :, None]
 
 
 def paged_zbar(cfg: LatentGridConfig, coords: torch.Tensor, grouping: dict,
@@ -201,11 +210,12 @@ def paged_zbar(cfg: LatentGridConfig, coords: torch.Tensor, grouping: dict,
 
 
 def paged_finish(cfg: LatentGridConfig, zbar: torch.Tensor,
-                 coords: torch.Tensor, *, affine) -> torch.Tensor:
+                 coords: torch.Tensor, *, affine,
+                 lod_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode the block-local latents into features on the (compacted) rows
     (``zbar @ matrix + shift``), plus the plain affine encode of any hashed
-    LOD that cannot be paged (none in the lego spec).  Returns the
-    multiscale features [N, output_dim]."""
+    LOD that cannot be paged (none in the lego spec), ``lod_mask`` applied.
+    Returns the multiscale features [N, output_dim]."""
     z, matrix, shift = affine
     spec = cfg.spec
     rest, direct, pag = ph.blocklocal_lods(spec)
@@ -218,6 +228,7 @@ def paged_finish(cfg: LatentGridConfig, zbar: torch.Tensor,
         parts = dict(zip(rest, feats_rest.unbind(1)))
         parts.update(zip(kernel_lods, feats.unbind(1)))
         feats = torch.stack([parts[l] for l in range(spec.num_lods)], dim=1)
+    feats = _mask_lods(feats, lod_mask)
     if cfg.multiscale_type == 'cat':
         return feats.reshape(n, -1)
     return feats.sum(dim=1)

@@ -111,11 +111,13 @@ def nerf_feats(params: dict, cfg: NeuralRadianceFieldConfig,
                coords: torch.Tensor, *, use_sga: bool = False,
                temperature: float = 1.0, sga_u: Optional[torch.Tensor] = None,
                decoded: Optional[torch.Tensor] = None,
-               affine=None) -> torch.Tensor:
-    """Grid features (+ positional embedding) at coords."""
+               affine=None, lod_mask: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """Grid features (``lod_mask`` applied) + positional embedding at
+    coords."""
     feats = lg.interpolate(params['grid'], cfg.grid, coords, use_sga=use_sga,
                            temperature=temperature, sga_u=sga_u,
-                           decoded=decoded, affine=affine)
+                           decoded=decoded, affine=affine, lod_mask=lod_mask)
     if cfg.pos_embed_dim:
         feats = torch.cat([feats, _pos_embed(cfg, coords)], dim=-1)
     return feats
@@ -134,11 +136,14 @@ def nerf_zbar(cfg: NeuralRadianceFieldConfig, coords: torch.Tensor,
 
 
 def nerf_finish_feats(cfg: NeuralRadianceFieldConfig, zbar: torch.Tensor,
-                      coords: torch.Tensor, *, affine) -> torch.Tensor:
+                      coords: torch.Tensor, *, affine,
+                      lod_mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """The paged encode's second stage on the compacted rows: decode the
-    latents (``latent_grid.paged_finish``) and append the positional
-    embedding."""
-    feats = lg.paged_finish(cfg.grid, zbar, coords, affine=affine)
+    latents (``latent_grid.paged_finish``, ``lod_mask`` applied) and append
+    the positional embedding."""
+    feats = lg.paged_finish(cfg.grid, zbar, coords, affine=affine,
+                            lod_mask=lod_mask)
     if cfg.pos_embed_dim:
         feats = torch.cat([feats, _pos_embed(cfg, coords)], dim=-1)
     return feats

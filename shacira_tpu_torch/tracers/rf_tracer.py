@@ -1,23 +1,34 @@
 """Radiance-field tracer: 'ray' march + masked volume integration.
 
-Port of the dense, compact and paged-deferred ``'ray'`` branches of
-``shacira_tpu/tracers/rf_tracer.py``.  Every ray carries a fixed sample axis
-with a boolean mask (masked samples add no optical thickness); with
-``max_samples`` the field is evaluated only on up to K occupied samples
-(budgeted stride compaction) and integrated in compact form, the per-ray
-sums running through the scatter kernel (``ops/scatter.segment_sum``).
+Port of the ``'ray'`` branches of ``shacira_tpu/tracers/rf_tracer.py``.
+Every ray carries a fixed sample axis with a boolean mask (masked samples
+add no optical thickness); with ``max_samples`` the field is evaluated only
+on up to K occupied samples (budgeted stride compaction) and integrated in
+compact form, the per-ray sums running through the scatter kernel
+(``ops/scatter.segment_sum``).
 
-The paged branch (``segment_size > 0``, ``fine_mode='deferred'`` or
-``'kernel'``, ``eval_seg_budget > 0`` and a 3-way ``encode_split``):
-segments of ``segment_size`` samples are culled at their midpoint against a
-dilated coarse occupancy grid, compacted twice (``seg_budget``, then
-``eval_seg_budget``), fine-queried, grouped by grouping cell
-(``ops/paged_hash.group_segments``), encoded block-locally on all their
-rows, compacted to ``max_samples`` rows and finished (direct decode, head)
-there.  With ``fine_mode='kernel'`` the per-sample fine query rides the
-encode (kernel B2's occupancy row): grouping keeps the sub-segments whose
-midpoint lies in a dilated fine cell (``occ_state['fine_dil']``), and the
-row compaction runs after the encode, on the occupancy row.  Budgets and
+The segmented march (``segment_size > 0``): segments of ``segment_size``
+samples are culled at their midpoint against a dilated coarse occupancy
+grid and compacted to ``seg_budget``.  With ``fine_mode='exact'`` every
+sample of those segments is fine-queried; without a paged encode split the
+live rows are compacted to ``max_samples`` and evaluated (flat layout),
+with one the fine-live segments are compacted to ``eval_seg_budget``
+(``_stage2_take``).  The paged branch (``eval_seg_budget > 0`` and a 3-way
+``encode_split``) groups the stage-2 segments by grouping cell
+(``ops/paged_hash.group_segments``), encodes all their rows block-locally,
+compacts rows to ``max_samples`` and finishes (direct decode, head) there.
+``fine_mode='deferred'`` takes a strided prefix of the coarse-live
+segments and fine-queries only those; ``'kernel'`` moves that fine query
+into the encode (kernel B2's occupancy row): grouping keeps the
+sub-segments whose midpoint lies in a dilated fine cell
+(``occ_state['fine_dil']``), and the row compaction runs after the encode.
+
+Lean stage 1 (``lean_stage1``, ``'deferred'``): segment midpoints are
+analytic, stage 1 compacts straight to ``eval_seg_budget`` and the
+survivors' depths come from a counter hash of (step seed, segment, sample);
+with ``super_factor > 1`` a super-segment cull runs first.  With
+``term_tau > 0`` segments behind an estimated optical depth of ``term_tau``
+(from the occupancy's decayed-max density) are culled too.  Budgets and
 strides stay device tensors: no host sync.
 
 Integration (exclusive transmittance):
@@ -27,11 +38,9 @@ Integration (exclusive transmittance):
     rgb = sum w_i c_i ; alpha = sum w_i ; depth = sum w_i t_i
 White background: rgb + (1 - alpha); black: alpha * rgb.
 
-The segmented ``'exact'`` march waits for ROADMAP Queue A item 7e, lean
-stage 1, the super-segment cull and transmittance culling for item 9a and
-the voxel march for item 11; fields
-return (rgb, density) only (the JAX tracer's extra per-sample channels have
-no caller on the ported path).
+The voxel march waits for ROADMAP Queue A item 11; fields return (rgb,
+density) only (the JAX tracer's extra per-sample channels have no caller on
+the ported path).
 """
 from __future__ import annotations
 
@@ -64,31 +73,74 @@ class RFTracerConfig:
     group_segs_per_block: int = 8  # segments per paged-kernel block
     group_res: int = 8             # grouping cells per axis (page_res // 2)
     group_seg_size: int = 0        # samples per grouped sub-segment (0: G)
-    fine_mode: str = 'exact'       # 'deferred' or 'kernel' (paged)
-    term_tau: float = 0.0          # transmittance culling: not ported
-    lean_stage1: bool = False      # not ported
-    super_factor: int = 0          # two-level cull: not ported
+    fine_mode: str = 'exact'       # 'exact' | 'deferred' | 'kernel'
+    # transmittance culling: drop segments whose estimated optical depth
+    # in front of them exceeds term_tau (0 disables)
+    term_tau: float = 0.0
+    # two-level cull (lean stage 1 only): super-segments of super_factor
+    # segments tested first on a super_dilation-dilated grid
+    super_factor: int = 0
+    super_dilation: int = 0
+    lean_stage1: bool = False      # analytic midpoints, hashed jitter
 
     def __post_init__(self):
         if self.raymarch_type != 'ray':
             raise NotImplementedError(
                 f'raymarch_type={self.raymarch_type!r}: the voxel march is '
                 'ROADMAP Queue A item 11')
-        if self.lean_stage1 or self.super_factor > 1 or self.term_tau > 0:
-            raise NotImplementedError(
-                'lean_stage1, super_factor and term_tau are not ported yet '
-                '(ROADMAP Queue A item 9a)')
-        if self.segment_size > 0 and self.fine_mode not in ('deferred',
-                                                             'kernel'):
-            raise NotImplementedError(
-                f"fine_mode={self.fine_mode!r}: the segmented 'exact' march "
-                'is ROADMAP Queue A item 7e; the port runs '
-                "fine_mode='deferred' and 'kernel'")
+        if self.lean_stage1 and self.fine_mode == 'kernel':
+            # the reference's lean march takes a (2,) seed, but its
+            # march_jitter_shape hands 'kernel' an [R, num_steps] array,
+            # which _lean_seed feeds to jax.random.randint as a key
+            raise ValueError(
+                "fine_mode='kernel' with lean_stage1 crashes in the "
+                'reference (shacira_tpu/tracers/rf_tracer.py:134: its '
+                '[R, num_steps] jitter reaches _lean_seed as a PRNG key), '
+                "so it has no counterpart; use fine_mode='deferred'")
 
 
 def march_jitter_shape(cfg: RFTracerConfig, num_rays: int):
-    """Shape of the U(0,1) march jitter :func:`trace` consumes."""
+    """Shape of the U(0,1) march jitter :func:`trace` consumes: the lean
+    march takes two uniforms (its step seed), the others [R, num_steps]."""
+    if cfg.lean_stage1 and cfg.fine_mode == 'deferred':
+        return (2,)
     return (num_rays, cfg.num_steps)
+
+
+def _lean_seed(u: torch.Tensor) -> torch.Tensor:
+    """uint32 step seed (an int64 tensor in [0, 2^32)) from the (2,)
+    U(0,1) array of :func:`march_jitter_shape`: 16 bits from each."""
+    if tuple(u.shape) != (2,) or not u.is_floating_point():
+        raise ValueError(f'the lean march takes a (2,) float jitter, got '
+                         f'{tuple(u.shape)} {u.dtype}')
+    lo = torch.floor(u[0] * 65536.0).long()
+    hi = torch.floor(u[1] * 65536.0).long()
+    return lo | (hi << 16)
+
+
+_U32 = 0xFFFFFFFF
+
+
+def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2^32`` for ``x`` in [0, 2^32) as int64, with ``c`` split
+    in 16-bit halves so that no product passes 2^49 (int64 has no
+    unsigned wrap, and PyTorch's uint32 lacks multiplication)."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _U32
+
+
+def _hash01(seed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Counter-hash jitter: the murmur3-style uint32 mix of ``idx + seed``
+    -> U[0, 1) in f32, bit for bit the JAX function's (its uint32 products
+    wrap; the uint32 -> f32 conversion rounds to nearest even, so values
+    near 2^32 give 1.0 on both sides)."""
+    x = (idx.long() + seed) & _U32
+    x = x ^ (x >> 16)
+    x = _mul_u32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul_u32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x.to(torch.float32) * (2.0 ** -32)
 
 
 def integration_weights(density, deltas, mask):
@@ -233,6 +285,29 @@ def validate_segment_cover(cfg: RFTracerConfig,
         raise ValueError(
             f'segment half-length {seg_half:.4f} exceeds coarse cover '
             f'{cover:.4f}; raise seg_dilation or lower coarse_level')
+    if cfg.super_factor > 1:
+        if not (cfg.lean_stage1 and cfg.fine_mode == 'deferred'):
+            raise ValueError('super_factor requires lean_stage1 + deferred')
+        ns = cfg.num_steps // cfg.segment_size
+        if ns % cfg.super_factor:
+            raise ValueError(f'super_factor {cfg.super_factor} must divide '
+                             f'the {ns}-segment ladder')
+        need = super_dilation_for(cfg, occ_cfg, dist_min, dist_max)
+        if cfg.super_dilation < need:
+            raise ValueError(
+                f'super_dilation {cfg.super_dilation} < required {need} '
+                f'for super_factor {cfg.super_factor}')
+
+
+def super_dilation_for(cfg: RFTracerConfig, occ_cfg: occ.OccupancyGridConfig,
+                       dist_min: float, dist_max: float) -> int:
+    """Least dilation under which the dilated coarse cell of a
+    super-segment midpoint covers all its ``super_factor * segment_size``
+    samples (+1 sample of jitter slack)."""
+    f = max(cfg.super_factor, 1)
+    half = (float(dist_max) - float(dist_min)) * (
+        f * cfg.segment_size / 2 + 1) / cfg.num_steps
+    return int(math.ceil(half / (2.0 / _coarse_res(cfg, occ_cfg))))
 
 
 def _coarse_dilated_occupancy(occ_state: dict,
@@ -260,18 +335,54 @@ def coarse_dilated_occupancy(occ_state: dict,
                                      cfg.seg_dilation)
 
 
+def coarse_packed_grid(occ_state: dict, occ_cfg: occ.OccupancyGridConfig,
+                       cfg: RFTracerConfig) -> torch.Tensor:
+    """The coarse grid of ``term_tau > 0``, [rc, rc, rc, 2] f32: channel 0
+    the dilated coarse occupancy (:func:`coarse_dilated_occupancy`),
+    channel 1 the undilated max-pool of the decayed-max density (dilating
+    it would lend a surface's opacity to its empty neighbours).  Trainers
+    keep it as ``occ_state['coarse2']``, refreshed once per prune."""
+    rc = _coarse_res(cfg, occ_cfg)
+    o = _coarse_dilated_occupancy(occ_state, occ_cfg, rc, cfg.seg_dilation)
+    f = occ_cfg.res // rc
+    d = occ_state['density'].reshape(rc, f, rc, f, rc, f).amax(
+        dim=(1, 3, 5))
+    return torch.stack([o.float(), d.float()], dim=-1)
+
+
+def _coarse_cells(pts: torch.Tensor, rc: int) -> torch.Tensor:
+    """Cell index [..., 3] of [-1, 1] points on an ``rc``-cell grid."""
+    return torch.clamp(torch.floor((pts * 0.5 + 0.5) * rc), 0, rc - 1).long()
+
+
+def _stashed(occ_state, key: str, derive, occ_cfg, cfg: RFTracerConfig):
+    """The grid a trainer keeps as ``occ_state[key]``, or ``derive``'s
+    result from the occupancy when it keeps none."""
+    grid = occ_state.get(key)
+    return grid if grid is not None else derive(occ_state, occ_cfg, cfg)
+
+
 def _segment_liveness(occ_state, occ_cfg, cfg: RFTracerConfig, rays: Rays,
-                      t_mid: torch.Tensor) -> torch.Tensor:
-    """Coarse segment liveness from midpoint depths ``t_mid`` [R, ns]."""
+                      t_mid: torch.Tensor, dmin: torch.Tensor,
+                      dmax: torch.Tensor) -> torch.Tensor:
+    """Coarse (and, with ``term_tau``, transmittance) segment liveness from
+    midpoint depths ``t_mid`` [R, ns]; ``dmin``, ``dmax`` [R, 1]."""
     cover = segment_cover_radius(cfg, occ_cfg)
     rc = _coarse_res(cfg, occ_cfg)
     mid = rays.origins[:, None, :] + rays.dirs[:, None, :] * t_mid[..., None]
     inside = torch.all(torch.abs(mid) <= 1.0 + cover, dim=-1)
-    ci = torch.clamp(torch.floor((mid * 0.5 + 0.5) * rc), 0, rc - 1).long()
-    coarse = occ_state.get('coarse')
-    if coarse is None:
-        coarse = _coarse_dilated_occupancy(occ_state, occ_cfg, rc,
-                                           cfg.seg_dilation)
+    ci = _coarse_cells(mid, rc)
+    if cfg.term_tau > 0:
+        v = _stashed(occ_state, 'coarse2', coarse_packed_grid, occ_cfg, cfg)[
+            ci[..., 0], ci[..., 1], ci[..., 2]]                  # [R, ns, 2]
+        live = (v[..., 0] > 0) & inside
+        # a segment's chord is G sample spacings of span / (S - 1)
+        seg_len = (dmax - dmin) * (cfg.segment_size / (cfg.num_steps - 1))
+        tau = torch.where(live, v[..., 1] * seg_len, 0.0)
+        cum = torch.cumsum(tau, dim=-1) - tau                    # exclusive
+        return live & (cum <= cfg.term_tau)
+    coarse = _stashed(occ_state, 'coarse', coarse_dilated_occupancy, occ_cfg,
+                      cfg)
     return coarse[ci[..., 0], ci[..., 1], ci[..., 2]] & inside
 
 
@@ -279,7 +390,9 @@ def coarse_segment_live(occ_state, occ_cfg, cfg: RFTracerConfig, rays: Rays,
                         jitter):
     """Stage-1 segment cull: (depth [R, S], deltas [R, S], mask_c [R, ns]).
     Sampling is :func:`occupancy.raymarch_ray`'s (same jitter); a segment
-    is live when its midpoint's dilated coarse cell is occupied."""
+    is live when its midpoint's dilated coarse cell is occupied (and, with
+    ``term_tau``, not behind an estimated optical depth of ``term_tau``).
+    Also the trainer's adaptive-budget probe."""
     G, S = cfg.segment_size, cfg.num_steps
     ns = S // G
     R = rays.origins.shape[0]
@@ -292,7 +405,57 @@ def coarse_segment_live(occ_state, occ_cfg, cfg: RFTracerConfig, rays: Rays,
     dseg = depth.reshape(R, ns, G)
     t_mid = 0.5 * (dseg[..., 0] + dseg[..., -1])
     return depth, deltas, _segment_liveness(occ_state, occ_cfg, cfg, rays,
-                                            t_mid)
+                                            t_mid, dmin, dmax)
+
+
+def _segment_rows(rays: Rays, r_id, depth):
+    """(samples [K, G, 3], dirs [K, 3]) of segment rows of rays ``r_id``
+    [K] at depths [K, G]."""
+    dirs = rays.dirs[r_id]
+    return rays.origins[r_id][:, None, :] + dirs[:, None, :] \
+        * depth[..., None], dirs
+
+
+def _seg_dict(samples, dirs, fine, depth, deltas, r_id, valid):
+    """A segment-major row set [K, G] as the paged trace takes it."""
+    k, g = depth.shape
+    return dict(samples=samples, dirs=dirs[:, None, :].expand(samples.shape),
+                fine=fine, depth=depth, deltas=deltas,
+                ray=r_id[:, None].expand(k, g), valid=valid)
+
+
+def _trace_ray_segmented(occ_state, occ_cfg, cfg: RFTracerConfig, rays: Rays,
+                         jitter) -> dict:
+    """Segmented march of ``fine_mode='exact'``: stage-1 coarse cull,
+    compaction to ``seg_budget`` segments and the fine occupancy of every
+    sample of those.  Segment-major rows [k_seg, G] ascending in (ray,
+    depth) over the live prefix; ``fine`` holds the per-sample fine
+    liveness (dead segments all False)."""
+    G = cfg.segment_size
+    ns = cfg.num_steps // G
+    R = rays.origins.shape[0]
+    depth, deltas, mask_c = coarse_segment_live(occ_state, occ_cfg, cfg,
+                                                rays, jitter)
+    k_seg = cfg.seg_budget or max(1, 8 * cfg.max_samples // G)
+    src_seg, seg_valid, _ = _stride_compact(mask_c.reshape(-1), k_seg)
+    r_id = torch.div(src_seg, ns, rounding_mode='floor')
+    depth_s = depth.reshape(R * ns, G)[src_seg]
+    samples, dirs = _segment_rows(rays, r_id, depth_s)
+    fine = occ.query(occ_state, occ_cfg, samples) & seg_valid[:, None]
+    return _seg_dict(samples, dirs, fine, depth_s,
+                     deltas.reshape(R * ns, G)[src_seg], r_id, seg_valid)
+
+
+def _stage2_take(seg: dict, cfg: RFTracerConfig) -> dict:
+    """Second-stage compaction of ``'exact'``: keep (up to)
+    ``eval_seg_budget`` segments with a fine-live sample, stride-dropped
+    on overflow, and gather their rows."""
+    src2, valid2, _ = _stride_compact(seg['fine'].any(dim=-1),
+                                      cfg.eval_seg_budget)
+    return dict(samples=seg['samples'][src2], dirs=seg['dirs'][src2],
+                fine=seg['fine'][src2] & valid2[:, None],
+                depth=seg['depth'][src2], deltas=seg['deltas'][src2],
+                ray=seg['ray'][src2], valid=valid2)
 
 
 def _trace_ray_deferred(occ_state, occ_cfg, cfg: RFTracerConfig, rays: Rays,
@@ -318,15 +481,125 @@ def _trace_ray_deferred(occ_state, occ_cfg, cfg: RFTracerConfig, rays: Rays,
     src2 = src_seg[torch.clamp(sel, max=k_seg - 1)]          # flat seg ids
     r_id = torch.div(src2, ns, rounding_mode='floor')
     depth2 = depth.reshape(R * ns, G)[src2]
-    delta2 = deltas.reshape(R * ns, G)[src2]
-    dirs2 = rays.dirs[r_id]
-    samples2 = rays.origins[r_id][:, None, :] + dirs2[:, None, :] \
-        * depth2[..., None]
-    fine2 = fine_qfn(samples2) & valid2[:, None]
-    return dict(samples=samples2,
-                dirs=dirs2[:, None, :].expand(samples2.shape),
-                fine=fine2, depth=depth2, deltas=delta2,
-                ray=r_id[:, None].expand(k2, G), valid=valid2)
+    samples2, dirs2 = _segment_rows(rays, r_id, depth2)
+    return _seg_dict(samples2, dirs2, fine_qfn(samples2) & valid2[:, None],
+                     depth2, deltas.reshape(R * ns, G)[src2], r_id, valid2)
+
+
+def super_grid(occ_state: dict, occ_cfg: occ.OccupancyGridConfig,
+               cfg: RFTracerConfig) -> torch.Tensor:
+    """The two-level cull's grid: the coarse occupancy dilated by
+    ``super_dilation``; trainers keep it as ``occ_state['super']``."""
+    return _coarse_dilated_occupancy(occ_state, occ_cfg,
+                                     _coarse_res(cfg, occ_cfg),
+                                     cfg.super_dilation)
+
+
+def _lean_midpoints(first_sample, G: int, S: int) -> torch.Tensor:
+    """Analytic midpoint parameter in [0, 1] of spans of ``G`` samples that
+    start at sample ``first_sample`` (f32 tensor): their centre sample plus
+    the expected jitter."""
+    return (first_sample + (G - 1) / 2.0) / (S - 1) + 0.5 / S
+
+
+def _lean_src2_two_level(occ_state, occ_cfg, cfg: RFTracerConfig,
+                         rays: Rays, span, dmin):
+    """Two-level lean stage 1: the super-segment cull, compaction of the
+    super-segments to ``eval_seg_budget``, then the per-segment tests on
+    their ``super_factor`` segments each.  Returns (src2 [k2] flat segment
+    ids, valid2 [k2]) in (ray, depth) order: the same survivors as the
+    one-level test when no budget truncates (the super test is
+    conservative)."""
+    G, S = cfg.segment_size, cfg.num_steps
+    ns = S // G
+    Fs = cfg.super_factor
+    ns_s = ns // Fs
+    k2 = cfg.eval_seg_budget
+    rc = _coarse_res(cfg, occ_cfg)
+    dev = span.device
+
+    # super level: [R, ns_s] midpoint test on the super-dilated grid
+    ar_s = torch.arange(ns_s, dtype=torch.float32, device=dev)
+    t_s = _lean_midpoints(ar_s * (Fs * G), Fs * G, S)[None, :] * span + dmin
+    mid_s = rays.origins[:, None, :] + rays.dirs[:, None, :] * t_s[..., None]
+    cover_s = cfg.super_dilation * (2.0 / rc)
+    inside_s = torch.all(torch.abs(mid_s) <= 1.0 + cover_s, dim=-1)
+    sgrid = _stashed(occ_state, 'super', super_grid, occ_cfg, cfg)
+    ci_s = _coarse_cells(mid_s, rc)
+    mask_s = sgrid[ci_s[..., 0], ci_s[..., 1], ci_s[..., 2]] & inside_s
+    src_s, valid_s, _ = _stride_compact(mask_s.reshape(-1), k2)
+    r_s = torch.div(src_s, ns_s, rounding_mode='floor')
+    si_s = src_s - r_s * ns_s                                     # [ks]
+
+    # segment level on the ks * F rows of the surviving super-segments
+    si = si_s[:, None] * Fs + torch.arange(Fs, device=dev)[None, :]
+    seg_ids = r_s[:, None] * ns + si                              # [ks, F]
+    span_s = span[:, 0][r_s][:, None]
+    dmin_s = dmin[:, 0][r_s][:, None]
+    t_mid = _lean_midpoints(si.float() * G, G, S) * span_s + dmin_s
+    mid = rays.origins[r_s][:, None, :] + rays.dirs[r_s][:, None, :] \
+        * t_mid[..., None]                                        # [ks, F, 3]
+    inside = torch.all(torch.abs(mid) <= 1.0 + segment_cover_radius(
+        cfg, occ_cfg), dim=-1)
+    ci = _coarse_cells(mid, rc)
+    if cfg.term_tau > 0:
+        v = _stashed(occ_state, 'coarse2', coarse_packed_grid, occ_cfg, cfg)[
+            ci[..., 0], ci[..., 1], ci[..., 2]]                  # [ks, F, 2]
+        live = (v[..., 0] > 0) & inside & valid_s[:, None]
+        tau = torch.where(live, v[..., 1] * (span_s * (G / (S - 1))), 0.0)
+        # exclusive per-ray prefix over the (ray, depth)-ordered rows;
+        # super-dead segments add nothing (their density cache is below
+        # the prune threshold, the one-level path's assumption too)
+        rs_flat = r_s[:, None].expand(-1, Fs).reshape(-1)
+        ray_start = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
+                               rs_flat[1:] != rs_flat[:-1]])
+        cum = _segmented_excl_f64(tau.reshape(-1), ray_start)
+        live = live & (cum.reshape(-1, Fs) <= cfg.term_tau)
+    else:
+        coarse = _stashed(occ_state, 'coarse', coarse_dilated_occupancy,
+                          occ_cfg, cfg)
+        live = (coarse[ci[..., 0], ci[..., 1], ci[..., 2]] & inside
+                & valid_s[:, None])
+    sel, valid2, _ = _stride_compact(live.reshape(-1), k2)
+    return seg_ids.reshape(-1)[sel], valid2
+
+
+def _trace_ray_deferred_lean(occ_state, occ_cfg, cfg: RFTracerConfig,
+                             rays: Rays, jitter, fine_qfn) -> dict:
+    """Lean deferred march: stage 1 on [R, ns] analytic midpoints (no
+    [R, num_steps] ladders), compacted straight to ``eval_seg_budget``
+    (two-level with ``super_factor > 1``); the k2 survivors' depths are
+    ``(j / (S-1) + u_j / S) * span + dmin`` with ``u_j`` the counter hash
+    of (step seed, sample id), deltas the uniform ``span / (S-1)``.
+    ``jitter`` is the (2,) U(0,1) array of :func:`march_jitter_shape`."""
+    G, S = cfg.segment_size, cfg.num_steps
+    ns = S // G
+    dev = rays.origins.device
+    seed = _lean_seed(occ.march_uniform(jitter, (2,), dev))
+    dmin, dmax = rays.dist_min[:, None], rays.dist_max[:, None]
+    span = dmax - dmin                                            # [R, 1]
+    k2 = cfg.eval_seg_budget
+    if cfg.super_factor > 1:
+        src2, valid2 = _lean_src2_two_level(occ_state, occ_cfg, cfg, rays,
+                                            span, dmin)
+    else:
+        first = torch.arange(ns, dtype=torch.float32, device=dev) * G
+        t_mid = _lean_midpoints(first, G, S)[None, :] * span + dmin
+        mask_c = _segment_liveness(occ_state, occ_cfg, cfg, rays, t_mid,
+                                   dmin, dmax)
+        src2, valid2, _ = _stride_compact(mask_c.reshape(-1), k2)
+    r_id = torch.div(src2, ns, rounding_mode='floor')
+    si = src2 - r_id * ns                                         # in ray
+    ar = torch.arange(G, device=dev)
+    j = si[:, None] * G + ar[None, :]                             # [k2, G]
+    u2 = _hash01(seed, src2[:, None] * G + ar[None, :])
+    span_r = span[:, 0][r_id][:, None]
+    dmin_r = dmin[:, 0][r_id][:, None]
+    depth2 = (j.float() / (S - 1) + u2 / S) * span_r + dmin_r
+    delta2 = (span_r / (S - 1)).expand(k2, G)
+    samples2, dirs2 = _segment_rows(rays, r_id, depth2)
+    return _seg_dict(samples2, dirs2, fine_qfn(samples2) & valid2[:, None],
+                     depth2, delta2, r_id, valid2)
 
 
 def fine_dilated_occupancy(occ_state: dict,
@@ -392,13 +665,68 @@ def _trace_paged(zbar_fn, finish_fn, head_fn, seg2: dict, cfg: RFTracerConfig,
             seg2['ray'].reshape(-1)[src_idx], num_rays)
 
 
+def _trace_ray_paged(occ_state, occ_cfg, cfg: RFTracerConfig, rays: Rays,
+                     jitter, encode_split) -> dict:
+    """The segmented march of ``cfg.fine_mode`` (lean or not) to stage-2
+    segments, then :func:`_trace_paged`."""
+    if len(encode_split) != 3:
+        raise ValueError('the paged trace takes the 3-way encode_split '
+                         '(zbar_fn, finish_fn, head_fn)')
+    dil_qfn = None
+    with record_function('trace/march'):
+        if cfg.fine_mode == 'exact':
+            seg2 = _stage2_take(_trace_ray_segmented(
+                occ_state, occ_cfg, cfg, rays, jitter), cfg)
+        else:
+            if cfg.fine_mode == 'kernel':
+                # the per-sample fine query comes out of the encode; here
+                # only the dilated fine test of the grouping
+                dil, rc = occ_state['fine_dil'], occ_cfg.res
+
+                def dil_qfn(pts):
+                    ci = _coarse_cells(pts, rc)
+                    return dil[ci[..., 0], ci[..., 1], ci[..., 2]]
+
+                def fine_qfn(s):
+                    return torch.ones(s.shape[:-1], dtype=torch.bool,
+                                      device=s.device)
+            else:
+                def fine_qfn(s):
+                    return occ.query(occ_state, occ_cfg, s)
+            march = (_trace_ray_deferred_lean if cfg.lean_stage1
+                     else _trace_ray_deferred)
+            seg2 = march(occ_state, occ_cfg, cfg, rays, jitter, fine_qfn)
+    return _trace_paged(*encode_split, seg2, cfg, rays.origins.shape[0],
+                        dil_qfn=dil_qfn)
+
+
+def _trace_compact_flat(field_fn, rows: dict, flat_mask: torch.Tensor,
+                        ray_of, max_samples: int, num_rays: int,
+                        rays: Rays) -> dict:
+    """Evaluate the field on up to ``max_samples`` live rows (``flat_mask``
+    over the flattened ``rows['samples']``, ``rows['depth']``,
+    ``rows['deltas']``) and integrate them compactly; ``ray_of(src)`` gives
+    the ray of flat rows, non-decreasing over the live ones."""
+    with record_function('trace/compact'):
+        src, valid, _ = _stride_compact(flat_mask, max_samples)
+        ray = ray_of(src)
+        coords, dirs = rows['samples'].reshape(-1, 3)[src], rays.dirs[ray]
+    color, density = field_fn(coords, dirs)
+    with record_function('trace/integrate'):
+        return volume_integrate_compact(
+            color, density[..., 0], rows['deltas'].reshape(-1)[src],
+            rows['depth'].reshape(-1)[src], valid, ray, num_rays)
+
+
 def trace(field_fn, occ_state: dict, occ_cfg: occ.OccupancyGridConfig,
           cfg: RFTracerConfig, rays: Rays, jitter, encode_split=None) -> dict:
     """March, evaluate and integrate.
 
     Args:
         field_fn(coords [N,3], dirs [N,3]) -> (rgb [N,3], density [N,1]).
-        jitter: [R, num_steps] U(0,1) tensor or a ``torch.Generator``.
+        jitter: U(0,1) tensor of :func:`march_jitter_shape` ([R,
+            num_steps], or (2,) for the lean march) or a
+            ``torch.Generator``.
         encode_split: (zbar_fn, finish_fn, head_fn) for the paged trace
             (``segment_size > 0``, ``eval_seg_budget > 0``): ``zbar_fn(
             coords [K*G, 3], grouping)`` returns the block-local latents,
@@ -412,34 +740,19 @@ def trace(field_fn, occ_state: dict, occ_cfg: occ.OccupancyGridConfig,
     """
     R = rays.origins.shape[0]
     if cfg.segment_size > 0 and cfg.max_samples > 0:
-        if encode_split is None or cfg.eval_seg_budget <= 0:
-            raise NotImplementedError(
-                "the segmented 'exact' march (no paged encode split) is "
-                'ROADMAP Queue A item 7e')
-        if len(encode_split) != 3:
-            raise ValueError('the paged trace takes the 3-way encode_split '
-                             '(zbar_fn, finish_fn, head_fn)')
-        dil_qfn = None
-        if cfg.fine_mode == 'kernel':
-            # the per-sample fine query comes out of the encode; here only
-            # the dilated fine test of the grouping
-            dil, rc = occ_state['fine_dil'], occ_cfg.res
-
-            def dil_qfn(pts):
-                ci = torch.clamp(torch.floor((pts * 0.5 + 0.5) * rc), 0,
-                                 rc - 1).long()
-                return dil[ci[..., 0], ci[..., 1], ci[..., 2]]
-
-            def fine_qfn(s):
-                return torch.ones(s.shape[:-1], dtype=torch.bool,
-                                  device=s.device)
-        else:
-            def fine_qfn(s):
-                return occ.query(occ_state, occ_cfg, s)
+        if encode_split is not None and cfg.eval_seg_budget > 0:
+            return _composite(_trace_ray_paged(
+                occ_state, occ_cfg, cfg, rays, jitter, encode_split), cfg)
         with record_function('trace/march'):
-            seg2 = _trace_ray_deferred(occ_state, occ_cfg, cfg, rays, jitter,
-                                       fine_qfn)
-        out = _trace_paged(*encode_split, seg2, cfg, R, dil_qfn=dil_qfn)
+            seg = _trace_ray_segmented(occ_state, occ_cfg, cfg, rays, jitter)
+        # segment-major rows: row n of the flat list is sample n % G of
+        # stage-1 segment n // G
+        ray_of = seg['ray'][:, 0]
+        out = _trace_compact_flat(
+            field_fn, seg, seg['fine'].reshape(-1),
+            lambda src: ray_of[torch.div(src, cfg.segment_size,
+                                         rounding_mode='floor')],
+            cfg.max_samples, R, rays)
         return _composite(out, cfg)
     with record_function('trace/march'):
         m = occ.raymarch_ray(occ_state, occ_cfg, rays, cfg.num_steps, jitter)
@@ -447,15 +760,10 @@ def trace(field_fn, occ_state: dict, occ_cfg: occ.OccupancyGridConfig,
     S = mask.shape[1]
     if cfg.max_samples and cfg.max_samples < R * S:
         # evaluate only up to max_samples occupied rows, integrate compactly
-        with record_function('trace/compact'):
-            src, valid, _ = _stride_compact(mask.reshape(-1), cfg.max_samples)
-            ray = torch.div(src, S, rounding_mode='floor')  # ray-major rows
-            coords, dirs = samples.reshape(-1, 3)[src], rays.dirs[ray]
-        color, density = field_fn(coords, dirs)
-        with record_function('trace/integrate'):
-            out = volume_integrate_compact(
-                color, density[..., 0], m['deltas'].reshape(-1)[src],
-                m['depth'].reshape(-1)[src], valid, ray, R)
+        out = _trace_compact_flat(
+            field_fn, m, mask.reshape(-1),
+            lambda src: torch.div(src, S, rounding_mode='floor'),
+            cfg.max_samples, R, rays)
     else:
         dirs = torch.broadcast_to(rays.dirs[:, None, :], samples.shape)
         color, density = field_fn(samples, dirs)

@@ -21,12 +21,20 @@ Semantics kept from the JAX package:
   * with ``fine_mode='kernel'``, the fine occupancy query as B2's
     occupancy row: the packed occupancy grid and the dilated fine grid of
     the grouping are refreshed with the coarse grid, and rendering runs
-    ``fine_mode='deferred'``.
+    ``fine_mode='deferred'``;
+  * transmittance culling and the two-level cull: the packed coarse grid
+    (``'coarse2'``) and the super grid (``'super'``) are refreshed with the
+    coarse grid, ``super_dilation`` is derived from the ray bounds;
+  * adaptive budgets: after every prune the step's tracer config
+    (``active_tracer_cfg``) takes sample and segment budgets on the
+    ``{2^k, 1.5 * 2^k}`` ladder from probes of the occupied-sample and
+    live-segment fractions; evaluation keeps the base config;
+  * the random-LOD and LOD-growth curricula as a per-step ``lod_mask``.
 
 Every random draw of a step (SGA uniforms, rate-loss noise, march jitter)
-is a :class:`StepDraws` argument of :meth:`MultiviewTrainer.step`; the
-trainer draws them from its ``torch.Generator``.  Checkpoint and resume,
-size reports, SSIM, the adaptive sample budget, LOD curricula and meshes
+is a :class:`StepDraws` argument of :meth:`MultiviewTrainer.step`, and the
+probes take their jitter as an argument; the trainer draws them from its
+``torch.Generator``.  Checkpoint and resume, size reports, SSIM and meshes
 wait for later slices (ROADMAP Queue A).
 """
 from __future__ import annotations
@@ -42,7 +50,7 @@ from torch.profiler import record_function
 from shacira_tpu_torch import optim
 from shacira_tpu_torch.accel import occupancy as occ
 from shacira_tpu_torch.core.rays import make_rays
-from shacira_tpu_torch.core.schedulers import DecayScheduler
+from shacira_tpu_torch.core.schedulers import DecayScheduler, grow_loss_lods
 from shacira_tpu_torch.device import resolve_device
 from shacira_tpu_torch.models.grids import latent_grid as lg
 from shacira_tpu_torch.models.latent_decoders import scale_norm, sga_uniform
@@ -73,6 +81,16 @@ class MultiviewTrainerConfig:
     entropy_reg_sched: str = 'cosine'
     noise_freq: int = 1
     prune_every: int = 100            # iterations (-1 disables)
+    # after each prune, shrink the step's budgets to ~budget_headroom x
+    # the probed live samples / segments, on the {2^k, 1.5*2^k} ladder
+    adaptive_budget: bool = False
+    budget_headroom: float = 1.5
+    min_budget: int = 16384
+    # LOD curricula: a max LOD drawn per step with weights 2^i, or the
+    # growth schedule of grow_every / growth_strategy
+    random_lod: bool = False
+    grow_every: int = -1
+    growth_strategy: str = 'increase'
     chunk_size: int = 100
     valid_every: int = -1             # epochs between validations
     valid_views: int = 4
@@ -81,9 +99,38 @@ class MultiviewTrainerConfig:
 @dataclass
 class StepDraws:
     """The random draws of one training step."""
-    march_u: torch.Tensor                  # [R, num_steps] U(0, 1)
+    march_u: torch.Tensor                  # march_jitter_shape U(0, 1)
     sga_u: Optional[torch.Tensor] = None   # [T, latent_dim] U(tiny, 1)
     noise: Optional[torch.Tensor] = None   # [T, latent_dim] U(-.5, .5)
+
+
+def budget_rung(x: float) -> int:
+    """Smallest budget >= ``x`` on the {2^k, 1.5 * 2^k} ladder (the 1.5
+    rungs only where 3/4 of the power of two is a multiple of 128)."""
+    p = 1 << int(np.ceil(np.log2(max(x, 1.0))))
+    if x <= 0.75 * p and (3 * p) % 512 == 0:
+        return (3 * p) // 4
+    return p
+
+
+def adapted_budgets(base: rf_tracer.RFTracerConfig, num_rays: int,
+                    sample_frac: float, seg_frac: Optional[float],
+                    min_budget: int, headroom: float) -> dict:
+    """Budgets for probed fractions of occupied samples and (on the paged
+    segmented march) of live segments, each capped at its base value."""
+    expected = sample_frac * num_rays * base.num_steps
+    k = min(budget_rung(max(min_budget, headroom * expected)),
+            base.max_samples)
+    new = {'max_samples': k}
+    if seg_frac is not None:
+        g = base.segment_size
+        live = seg_frac * num_rays * (base.num_steps // g)
+        want = budget_rung(max(max(256, min_budget // g), headroom * live))
+        sb_base = base.seg_budget or max(1, 8 * base.max_samples // g)
+        new['seg_budget'] = min(want, sb_base)
+        new['eval_seg_budget'] = min(want, base.eval_seg_budget)
+        new['max_samples'] = min(k, new['eval_seg_budget'] * g)
+    return new
 
 
 class MultiviewTrainer:
@@ -99,7 +146,15 @@ class MultiviewTrainer:
             tracer_cfg = replace(tracer_cfg,
                                  group_res=ph.group_res_of(
                                      model_cfg.grid.page_res))
+        if tracer_cfg.super_factor > 1 and tracer_cfg.super_dilation == 0:
+            # the least conservative super-cull dilation for these bounds
+            tracer_cfg = replace(tracer_cfg, super_dilation=(
+                rf_tracer.super_dilation_for(
+                    tracer_cfg, model_cfg.occ_cfg, float(dataset.dist_min),
+                    float(dataset.dist_max))))
         self.tracer_cfg = tracer_cfg
+        # the step's config: the base one with adapted budgets
+        self.active_tracer_cfg = tracer_cfg
         self.dataset = dataset
         self.val_dataset = val_dataset
         self.num_rays = num_rays
@@ -163,22 +218,31 @@ class MultiviewTrainer:
 
     def _refresh_coarse(self):
         """Recompute the segmented march's grids derived from the occupancy
-        (which changes only at prune time): the coarse culling grid, and
-        with ``fine_mode='kernel'`` the packed occupancy grid of B2's
-        occupancy row and the dilated fine grid of the grouping."""
-        ocfg = self.model_cfg.occ_cfg
+        (which changes only at prune time): the coarse culling grid, with
+        ``term_tau`` the packed coarse grid, with ``super_factor`` the
+        super grid, and with ``fine_mode='kernel'`` the packed occupancy
+        grid of B2's occupancy row and the dilated fine grid of the
+        grouping."""
+        ocfg, tcfg = self.model_cfg.occ_cfg, self.tracer_cfg
         base = {k: v for k, v in self.occ_state.items()
-                if k not in ('coarse', 'occ_packed', 'fine_dil')}
+                if k not in ('coarse', 'coarse2', 'super', 'occ_packed',
+                             'fine_dil')}
         new = dict(base, coarse=rf_tracer.coarse_dilated_occupancy(
-            base, ocfg, self.tracer_cfg))
-        if self.tracer_cfg.fine_mode == 'kernel':
+            base, ocfg, tcfg))
+        if tcfg.term_tau > 0:
+            new['coarse2'] = rf_tracer.coarse_packed_grid(base, ocfg, tcfg)
+        if tcfg.super_factor > 1:
+            new['super'] = rf_tracer.super_grid(base, ocfg, tcfg)
+        if tcfg.fine_mode == 'kernel':
             new['occ_packed'] = ph.pack_occupancy(base['occ'])
             new['fine_dil'] = rf_tracer.fine_dilated_occupancy(base, ocfg)
         self.occ_state = new
 
-    def _encode_split(self, params: dict, parts, kernel_occ: bool = False):
+    def _encode_split(self, params: dict, parts, kernel_occ: bool = False,
+                      lod_mask: Optional[torch.Tensor] = None):
         """(zbar_fn, finish_fn, head_fn) of the paged trace; with
-        ``kernel_occ`` zbar_fn also returns B2's occupancy row."""
+        ``kernel_occ`` zbar_fn also returns B2's occupancy row; finish_fn
+        applies ``lod_mask``."""
         mcfg, tcfg = self.model_cfg, self.tracer_cfg
         seg_group = tcfg.group_seg_size or tcfg.segment_size
 
@@ -197,7 +261,7 @@ class MultiviewTrainer:
 
         def finish_fn(zbar_c, coords_c):
             return nerf_mod.nerf_finish_feats(mcfg, zbar_c, coords_c,
-                                              affine=parts)
+                                              affine=parts, lod_mask=lod_mask)
 
         def head_fn(feats, dirs):
             return nerf_mod.nerf_head(params, mcfg, feats, dirs)
@@ -217,17 +281,20 @@ class MultiviewTrainer:
                                         device=dev) - 0.5
             noise = self.noise
         march_u = torch.rand(
-            rf_tracer.march_jitter_shape(self.tracer_cfg, self.num_rays),
+            rf_tracer.march_jitter_shape(self.active_tracer_cfg,
+                                         self.num_rays),
             generator=gen, device=dev)
         return StepDraws(march_u=march_u, sga_u=sga_u, noise=noise)
 
     def step(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
              gt: torch.Tensor, draws: StepDraws, *, ent_lambda: float,
-             temperature: float, lr_ldec: float,
-             use_sga: bool) -> Dict[str, torch.Tensor]:
-        """One training step: trace, L1 + rate loss, backward, Adam (in
-        place on ``self.params`` / ``self.opt_state``)."""
-        cfg, mcfg, tcfg = self.cfg, self.model_cfg, self.tracer_cfg
+             temperature: float, lr_ldec: float, use_sga: bool,
+             lod_mask: Optional[torch.Tensor] = None
+             ) -> Dict[str, torch.Tensor]:
+        """One training step: trace (``active_tracer_cfg``; ``lod_mask``
+        [num_lods] 0/1 masks the grid features of LODs), L1 + rate loss,
+        backward, Adam (in place on ``self.params`` / ``self.opt_state``)."""
+        cfg, mcfg, tcfg = self.cfg, self.model_cfg, self.active_tracer_cfg
         gcfg = mcfg.grid
         p = self.params
         trained = [(path, leaf) for path, leaf
@@ -245,12 +312,15 @@ class MultiviewTrainer:
 
         def field_fn(coords, dirs):
             if self.affine:
-                return nerf_mod.nerf_rgba(p, mcfg, coords, dirs, affine=parts)
-            return nerf_mod.nerf_rgba(p, mcfg, coords, dirs, decoded=decoded)
+                return nerf_mod.nerf_rgba(p, mcfg, coords, dirs, affine=parts,
+                                          lod_mask=lod_mask)
+            return nerf_mod.nerf_rgba(p, mcfg, coords, dirs, decoded=decoded,
+                                      lod_mask=lod_mask)
 
         d = self.dataset
         rays = make_rays(rays_o, rays_d, d.dist_min, d.dist_max)
-        split = (self._encode_split(p, parts, tcfg.fine_mode == 'kernel')
+        split = (self._encode_split(p, parts, tcfg.fine_mode == 'kernel',
+                                    lod_mask)
                  if self.use_paged else None)
         rb = rf_tracer.trace(field_fn, self.occ_state, mcfg.occ_cfg, tcfg,
                              rays, draws.march_u, encode_split=split)
@@ -299,6 +369,65 @@ class MultiviewTrainer:
             self._refresh_coarse()
 
     # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _probe_fraction(self, body, jitter_shape, jitter=None) -> float:
+        """``body(rays, jitter)`` -> a scalar tensor, on one presampled ray
+        batch (drawn from the ray stream, as the JAX trainer draws it);
+        ``jitter`` U(0,1) of ``jitter_shape``, drawn when None.  One host
+        readback: probes run once per prune, never in a step."""
+        d = self.dataset
+        ro, rd, _ = self._presample(1)
+        rays = make_rays(torch.as_tensor(ro[0], device=self.device),
+                         torch.as_tensor(rd[0], device=self.device),
+                         d.dist_min, d.dist_max)
+        if jitter is None:
+            jitter = torch.rand(jitter_shape, generator=self.generator,
+                                device=self.device)
+        return float(body(rays, jitter))
+
+    def _occupied_sample_fraction(self, jitter=None) -> float:
+        """Fraction of march samples of real rays in occupied cells (camera
+        rays concentrate on the occupied region, so this can far exceed the
+        occupied volume fraction); ``jitter`` [num_rays, num_steps]."""
+        base = self.tracer_cfg
+
+        def body(rays, u):
+            m = occ.raymarch_ray(self.occ_state, self.model_cfg.occ_cfg,
+                                 rays, base.num_steps, u)
+            return torch.mean(m['mask'].float())
+
+        return self._probe_fraction(body, (self.num_rays, base.num_steps),
+                                    jitter)
+
+    def _live_segment_fraction(self, jitter=None) -> float:
+        """Fraction of segments that survive the (non-lean) stage-1 cull of
+        the base config, ``term_tau`` included; ``jitter`` [num_rays,
+        num_steps]."""
+        base = self.tracer_cfg
+
+        def body(rays, u):
+            _, _, mask_c = rf_tracer.coarse_segment_live(
+                self.occ_state, self.model_cfg.occ_cfg, base, rays, u)
+            return torch.mean(mask_c.float())
+
+        return self._probe_fraction(body, (self.num_rays, base.num_steps),
+                                    jitter)
+
+    def _adapt_budget(self):
+        """Set ``active_tracer_cfg``'s budgets from the probes
+        (:func:`adapted_budgets`): the sample budget, and on the segmented
+        march with a second stage the segment budgets, which size every
+        stage after the cull (grouping, B2/B3, compaction, head)."""
+        base = self.tracer_cfg
+        if base.max_samples <= 0:
+            return
+        seg = base.segment_size > 0 and base.eval_seg_budget > 0
+        new = adapted_budgets(
+            base, self.num_rays, self._occupied_sample_fraction(),
+            self._live_segment_fraction() if seg else None,
+            self.cfg.min_budget, self.cfg.budget_headroom)
+        self.active_tracer_cfg = replace(base, **new)
+
     def _presample(self, n: int):
         """Host-side ray batches for ``n`` steps (one view per step)."""
         d = self.dataset
@@ -315,6 +444,27 @@ class MultiviewTrainer:
 
     def _epoch_of(self, it: int) -> int:
         return it // self.iters_per_epoch + 1
+
+    def _lod_masks(self, iterations) -> Optional[np.ndarray]:
+        """[n, num_lods] f32 LOD masks of a chunk's steps under the random
+        LOD curriculum (a max LOD per step with weights 2^i, from the ray
+        stream) or the growth curriculum; None without a curriculum."""
+        cfg = self.cfg
+        num_lods = self.model_cfg.grid.num_lods
+        n = len(iterations)
+        if cfg.random_lod:
+            w = 2.0 ** np.arange(num_lods)
+            lods = self.np_rng.choice(num_lods, size=n, p=w / w.sum())
+            return (np.arange(num_lods)[None, :]
+                    <= lods[:, None]).astype(np.float32)
+        if cfg.grow_every > 0:
+            masks = np.zeros((n, num_lods), np.float32)
+            for i, it in enumerate(iterations):
+                masks[i, grow_loss_lods(self._epoch_of(it), num_lods,
+                                        cfg.grow_every,
+                                        cfg.growth_strategy)] = 1.0
+            return masks
+        return None
 
     def train(self, num_iterations: Optional[int] = None, log_fn=None):
         """Train ``num_iterations`` steps (default: to the configured end),
@@ -341,9 +491,14 @@ class MultiviewTrainer:
             e0 = self._epoch_of(it0)
             use_sga = (self.ldecode_enabled and cfg.use_sga
                        and (e0 / cfg.epochs) <= cfg.decay_period)
+            # drawn before the ray batches, from the same stream, as the
+            # JAX trainer draws them
+            masks = self._lod_masks(range(it0, it0 + n))
             # one upload a chunk: each host-to-device copy syncs the stream
             ro, rd, gt = (torch.as_tensor(a, device=self.device)
                           for a in self._presample(n))
+            if masks is not None:
+                masks = torch.as_tensor(masks, device=self.device)
             for i in range(n):
                 it = it0 + i
                 e = self._epoch_of(it)
@@ -353,21 +508,28 @@ class MultiviewTrainer:
                 metrics = self.step(ro[i], rd[i], gt[i], draws,
                     ent_lambda=self.entropy_reg_sched(e),
                     temperature=self.temperature_sched(e),
-                    lr_ldec=self.ldec_lr_sched(e), use_sga=use_sga)
+                    lr_ldec=self.ldec_lr_sched(e), use_sga=use_sga,
+                    lod_mask=None if masks is None else masks[i])
             self.iteration += n
             done += n
             if (cfg.prune_every > 0 and self.iteration > 1
                     and self.iteration % cfg.prune_every == 0):
                 self.prune()
+                if cfg.adaptive_budget:
+                    self._adapt_budget()
             if log_fn:
-                log_fn({'iteration': self.iteration,
-                        'epoch': self._epoch_of(self.iteration),
-                        'loss': float(metrics['loss']),
-                        'rgb_loss': float(metrics['rgb_loss']),
-                        'psnr': float(metrics['psnr']),
-                        'occupancy': float(torch.mean(
-                            self.occ_state['occ'].float())),
-                        'elapsed': time.time() - t0})
+                entry = {'iteration': self.iteration,
+                         'epoch': self._epoch_of(self.iteration),
+                         'loss': float(metrics['loss']),
+                         'rgb_loss': float(metrics['rgb_loss']),
+                         'psnr': float(metrics['psnr']),
+                         'occupancy': float(torch.mean(
+                             self.occ_state['occ'].float())),
+                         'elapsed': time.time() - t0}
+                if cfg.adaptive_budget and self.tracer_cfg.max_samples > 0:
+                    entry['sample_budget'] = \
+                        self.active_tracer_cfg.max_samples
+                log_fn(entry)
             self._post_chunk(log_fn)
         return {'iterations': self.iteration, 'elapsed': time.time() - t0}
 
@@ -397,10 +559,12 @@ class MultiviewTrainer:
     @torch.no_grad()
     def render_view(self, view_idx: int, ray_batch: int = 4096,
                     generator: Optional[torch.Generator] = None,
-                    dataset=None, params=None) -> np.ndarray:
+                    dataset=None, params=None,
+                    lod_mask: Optional[np.ndarray] = None) -> np.ndarray:
         """Render one view in eval mode (rounded latents, decoded once; on
         the paged path the eval-mode affine parts, decoded after the
-        block-local interpolation)."""
+        block-local interpolation) with the base tracer config; ``lod_mask``
+        [num_lods] masks LODs."""
         d = dataset if dataset is not None else self.dataset
         params = params if params is not None else self.params
         mcfg, tcfg = self.model_cfg, self.tracer_cfg
@@ -410,17 +574,20 @@ class MultiviewTrainer:
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(0)
+        if lod_mask is not None:
+            lod_mask = torch.as_tensor(lod_mask, dtype=torch.float32,
+                                       device=self.device)
         split = None
         if self.use_paged:
             parts = lg.affine_parts(params['grid'], mcfg.grid)
-            split = self._encode_split(params, parts)
+            split = self._encode_split(params, parts, lod_mask=lod_mask)
             field_fn = None
         else:
             decoded = lg.decode_codebook(params['grid'], mcfg.grid)
 
             def field_fn(coords, dirs):
                 return nerf_mod.nerf_rgba(params, mcfg, coords, dirs,
-                                          decoded=decoded)
+                                          decoded=decoded, lod_mask=lod_mask)
 
         npix = d.rgb.shape[1]
         out = np.zeros((npix, 3), np.float32)

@@ -298,25 +298,47 @@ PAGED_FLAGS = ['--hash-layout', 'paged', '--page-res', '16',
                '--fine-mode', 'deferred', '--max-samples', '262144']
 
 
-def test_config_reads_the_paged_lego_flags_like_the_jax_package():
-    from dataclasses import fields
+# the JAX bench's headline setting (bench.py's nerf_sustained stage)
+SUSTAINED_FLAGS = ['--term-tau', '11.5', '--lean-stage1', 'true',
+                   '--super-factor', '4', '--adaptive-budget', 'true',
+                   '--min-budget', '8192']
+
+
+def _jax_and_port_args(argv):
     from shacira_tpu import config as jconfig
-    argv = ['--config', os.path.join(ROOT, 'configs', 'nerf_lego.yaml'),
-            *PAGED_FLAGS]
     jargs = jconfig.parse_args(
         jconfig.add_nerf_args(jconfig.build_image_parser()), argv)
-    targs = tconfig.parse_args(tconfig.build_nerf_parser(), argv)
-    jm = jconfig.build_nerf_model_config(jargs)
-    tm = tconfig.build_nerf_model_config(targs)
-    assert tm.grid.spec.total_size == jm.grid.spec.total_size == 7_879_908
-    assert (tm.grid.hash_layout, tm.grid.page_res) == ('paged', 16)
-    rest, direct, pag = trt.ph.blocklocal_lods(tm.grid.spec)
-    assert (rest, direct, pag) == jph.blocklocal_lods(jm.grid.spec)
-    assert (len(rest), len(direct), len(pag)) == (0, 11, 13)
-    jt, tt = (jconfig.build_tracer_config(jargs),
-              tconfig.build_tracer_config(targs))
-    for f in fields(tt):
-        assert getattr(tt, f.name) == getattr(jt, f.name), f.name
+    return jconfig, jargs, tconfig.parse_args(tconfig.build_nerf_parser(),
+                                              argv)
+
+
+def _assert_same_fields(got, want):
+    from dataclasses import fields
+    for f in fields(got):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
+
+
+def test_config_reads_the_paged_lego_flags_like_the_jax_package():
+    """The paged lego flags, alone and with the sustained ones: the same
+    grid, tracer and trainer configs as the JAX package's."""
+    lego = ['--config', os.path.join(ROOT, 'configs', 'nerf_lego.yaml')]
+    for argv in (lego + PAGED_FLAGS, lego + PAGED_FLAGS + SUSTAINED_FLAGS):
+        jconfig, jargs, targs = _jax_and_port_args(argv)
+        jm = jconfig.build_nerf_model_config(jargs)
+        tm = tconfig.build_nerf_model_config(targs)
+        assert tm.grid.spec.total_size == jm.grid.spec.total_size \
+            == 7_879_908
+        assert (tm.grid.hash_layout, tm.grid.page_res) == ('paged', 16)
+        rest, direct, pag = trt.ph.blocklocal_lods(tm.grid.spec)
+        assert (rest, direct, pag) == jph.blocklocal_lods(jm.grid.spec)
+        assert (len(rest), len(direct), len(pag)) == (0, 11, 13)
+        tt = tconfig.build_tracer_config(targs)
+        _assert_same_fields(tt, jconfig.build_tracer_config(jargs))
+        _assert_same_fields(tconfig.build_nerf_trainer_config(targs),
+                            jconfig.build_nerf_trainer_config(jargs))
+    tc = tconfig.build_nerf_trainer_config(targs)
+    assert (tt.lean_stage1, tt.super_factor, tt.term_tau) == (True, 4, 11.5)
+    assert (tc.adaptive_budget, tc.min_budget) == (True, 8192)
 
 
 @pytest.mark.parametrize('flags,item', [
@@ -325,7 +347,15 @@ def test_config_reads_the_paged_lego_flags_like_the_jax_package():
     (['--lean-stage1', 'true'], '9a'), (['--super-factor', '2'], '9a'),
     (['--term-tau', '11.5'], '9a')])
 def test_unported_paged_modes_raise_naming_their_item(flags, item):
-    argv = PAGED_FLAGS + flags
-    args = tconfig.parse_args(tconfig.build_nerf_parser(), argv)
-    with pytest.raises(NotImplementedError, match=f'item {item}'):
-        tconfig.build_tracer_config(args)
+    """The paged modes of ROADMAP items 9a and 7e (``item``), which raised
+    before they were ported, build the JAX package's tracer config;
+    'kernel' with lean stage 1, which crashes in the reference, raises a
+    ValueError that names the crash."""
+    jconfig, jargs, targs = _jax_and_port_args(PAGED_FLAGS + flags)
+    if flags[:2] == ['--fine-mode', 'kernel']:
+        with pytest.raises(ValueError, match='crashes in the reference'):
+            tconfig.build_tracer_config(targs)
+        return
+    assert item in ('9a', '7e')
+    _assert_same_fields(tconfig.build_tracer_config(targs),
+                        jconfig.build_tracer_config(jargs))

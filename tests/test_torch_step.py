@@ -241,13 +241,14 @@ def test_config_rejects_unknown_keys_and_unported_options(tmp_path):
     bad.write_text('grid:\n    not_an_option: 3\n')
     with pytest.raises(ValueError):
         tconfig.parse_args(tconfig.build_nerf_parser(), ['--config', str(bad)])
+    # other grid backbones (ROADMAP item 12) and checkpoints (7a)
     args = tconfig.parse_args(tconfig.build_nerf_parser(),
-                              ['--segment-size', '16'])
-    with pytest.raises(NotImplementedError):
-        tconfig.build_tracer_config(args)
+                              ['--grid-type', 'OctreeGrid'])
+    with pytest.raises(NotImplementedError, match='item 12'):
+        tconfig.build_nerf_model_config(args)
     args = tconfig.parse_args(tconfig.build_nerf_parser(),
-                              ['--adaptive-budget', 'true'])
-    with pytest.raises(NotImplementedError):
+                              ['--resume', 'true'])
+    with pytest.raises(NotImplementedError, match='item 7a'):
         tconfig.build_nerf_trainer_config(args)
 
 

@@ -198,7 +198,10 @@ def test_trace_matches_jax(max_samples):
 
 
 def test_unported_march_modes_raise():
+    """The voxel march is not ported; 'kernel' with lean stage 1 crashes in
+    the reference and raises here."""
     with pytest.raises(NotImplementedError):
         trt.RFTracerConfig(raymarch_type='voxel')
-    with pytest.raises(NotImplementedError):
-        trt.RFTracerConfig(segment_size=16, max_samples=1024)
+    with pytest.raises(ValueError, match='crashes in the reference'):
+        trt.RFTracerConfig(segment_size=16, max_samples=1024,
+                           fine_mode='kernel', lean_stage1=True)
