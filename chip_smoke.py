@@ -63,7 +63,16 @@ Phases, each of which must pass (exit code 1 otherwise):
 9. modes    -- 3 full-width steps each of the flat segmented 'exact'
                march, the paged 'exact' march and the paged run with
                --random-lod, from the app's flags: B1(a) and B1(b), or
-               B1(b), B2 and B3, every step.
+               B1(b), B2 and B3, every step;
+10. app     -- the app's ``main`` in the sustained setting on a generated
+               Blender-format scene (40 + 2 views of 128 x 128): 120 steps
+               with a resume state every epoch, ``--resume`` to step 160,
+               ``--valid-only`` (its PSNR equal to the resumed run's to
+               1e-4 dB); ``metrics.json`` with PSNR, SSIM, LPIPS on random
+               weights and the size report, the checkpoints, the saved view
+               and the turntable; the checkpoint, evaluation, size-report
+               and turntable calls timed; B1(b), B2 and B3 must have
+               launched.
 
 The second-to-last lines are the card's name and power limit and the
 kernels JSON; the last line is the result JSON.  Exits non-zero without
@@ -1107,6 +1116,147 @@ def phase_modes(dev):
     return launches
 
 
+# the app phase: training flags of its three runs (after the lego config,
+# PAGED_FLAGS and SUSTAINED_FLAGS), 40 views a epoch
+APP_RUNS = (('train', ['--epochs', '3', '--save-every', '1']),
+            ('resume', ['--epochs', '4', '--save-every', '1', '--resume',
+                        'true']),
+            ('valid-only', ['--epochs', '4', '--save-every', '1',
+                            '--resume', 'true', '--valid-only']))
+# the app's calls timed in the app phase: (owner module or class, name)
+APP_TIMED = (('checkpoint', 'save_trainer'), ('checkpoint', 'save_model'),
+             ('checkpoint', 'restore_trainer'), ('checkpoint', 'load_model'),
+             ('trainer', 'evaluate'), ('trainer', 'size_report'),
+             ('app', 'render_turntable'))
+
+
+def phase_app(dev):
+    """The app itself (``apps/train_nerf.main``) at full lego width in the
+    headline setting on the Blender-format scene of
+    ``tools/make_synthetic_data.write_nerf_scene(views=40, val_views=2,
+    res=128)``: 120 steps across the prune at 100 with a resume state every
+    epoch, a resumed run to step 160, and ``--valid-only``, which must
+    reload the models and reproduce the second run's PSNR to 1e-4 dB.
+    LPIPS runs on random weights (its value means nothing).  The app's
+    checkpoint, evaluation, size-report and turntable calls are timed (the
+    card drained around each).  Launch counts are zeroed before the first
+    run and read after the last: B1(b), B2 and B3 must have launched."""
+    import logging
+    import tempfile
+
+    import torch
+    from shacira_tpu_torch.apps import train_nerf
+    from shacira_tpu_torch.ops import lpips as lpips_mod
+    from shacira_tpu_torch.trainers.multiview_trainer import MultiviewTrainer
+    from shacira_tpu_torch.utils import checkpoint
+    from tools.make_synthetic_data import write_nerf_scene
+    owners = {'checkpoint': checkpoint, 'trainer': MultiviewTrainer,
+              'app': train_nerf}
+    seconds, originals = {}, {}
+    for owner, name in APP_TIMED:
+        def timed(*a, _fn=getattr(owners[owner], name), _name=name, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds.setdefault(_name, []).append(time.perf_counter() - t0)
+            return out
+        originals[owner, name] = getattr(owners[owner], name)
+        setattr(owners[owner], name, timed)
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    logger = logging.getLogger('shacira_tpu_torch')
+    logger.addHandler(handler)
+    env = os.environ.get(lpips_mod.ENV_VAR)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            weights = os.path.join(tmp, 'lpips_random.npz')
+            np.savez(weights, **lpips_mod.random_weights(0))
+            os.environ[lpips_mod.ENV_VAR] = weights
+            return _drive_app(dev, tmp, train_nerf, write_nerf_scene,
+                              seconds, lines)
+    finally:
+        for (owner, name), fn in originals.items():
+            setattr(owners[owner], name, fn)
+        logger.removeHandler(handler)
+        if env is None:
+            os.environ.pop(lpips_mod.ENV_VAR, None)
+        else:
+            os.environ[lpips_mod.ENV_VAR] = env
+
+
+def _drive_app(dev, tmp, train_nerf, write_nerf_scene, seconds, lines):
+    """The three runs of :func:`phase_app` in ``tmp``."""
+    import torch
+    scene = os.path.join(tmp, 'scene')
+    t0 = time.perf_counter()
+    write_nerf_scene(scene, views=40, val_views=2, res=128)
+    log(f'  scene: 40 + 2 views of 128 x 128 in '
+        f'{time.perf_counter() - t0:.1f} s')
+    base = (['--config', os.path.join(ROOT, 'configs', 'nerf_lego.yaml'),
+             '--device', dev, '--dataset-path', scene, '--log-dir',
+             os.path.join(tmp, 'runs'), '--exp-name', 'lego']
+            + PAGED_FLAGS + SUSTAINED_FLAGS)
+    exp = os.path.join(tmp, 'runs', 'lego')
+    metrics, logs = {}, {}
+    _reset_launches()
+    for name, flags in APP_RUNS:
+        del lines[:]
+        seconds.clear()
+        t0 = time.perf_counter()
+        if train_nerf.main(base + flags) != 0:
+            raise AssertionError(f'app run {name} failed')
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(exp, 'metrics.json')) as f:
+            metrics[name] = json.load(f)
+        logs[name] = list(lines)
+        m = metrics[name]
+        log(f'  app {name}: {wall:.1f} s; psnr {m["psnr"]:.6f} ssim '
+            f'{m["ssim"]:.6f} lpips (random weights, meaningless) '
+            f'{m["lpips"]:.6f}; latent_size_kb {m["latent_size_kb"]} '
+            f'total_size_kb {m["total_size_kb"]} stream {m["stream"]}')
+        log(f'  app {name} seconds: ' + json.dumps(
+            {k: [round(s, 4) for s in v] for k, v in seconds.items()}))
+        log(f'  app {name} wrote: {sorted(os.listdir(exp))}')
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    log(f'  app metrics.json: {json.dumps(metrics["resume"])}')
+    log(f'  app launches: {launches}')
+    steps = [ln for ln in logs['train'] + logs['resume']
+             if ln.startswith('iteration ')]
+    log(f'  app training log: {steps}')
+    for name, m in metrics.items():
+        if not all(math.isfinite(m[k]) for k in ('psnr', 'ssim', 'lpips',
+                                                  'total_size_kb')):
+            raise AssertionError(f'app {name}: non-finite metrics {m}')
+        if not (m['total_size_kb'] > 0 and m['stream'] in ('histogram',
+                                                           'prob_model')):
+            raise AssertionError(f'app {name}: size report {m}')
+    if 'Resumed at iteration 120' not in logs['resume'] or not any(
+            ln.startswith('iteration 160 ') for ln in logs['resume']):
+        raise AssertionError(f'the resumed run did not continue from '
+                             f'iteration 120 to 160: {logs["resume"]}')
+    if ('valid-only: loaded model_best.ckpt' not in logs['valid-only']
+            or any(ln.startswith('iteration ') for ln in logs['valid-only'])):
+        raise AssertionError(f'--valid-only did not reload without training: '
+                             f'{logs["valid-only"]}')
+    diff = abs(metrics['valid-only']['psnr'] - metrics['resume']['psnr'])
+    log(f'  --valid-only PSNR - resumed run PSNR: {diff:.3e} dB')
+    if not diff <= 1e-4:
+        raise AssertionError('--valid-only did not reproduce the PSNR')
+    for f in ('metrics.json', 'model_best.ckpt', 'resume_state.ckpt',
+              'val_view0.png', 'turntable.gif'):
+        if not os.path.exists(os.path.join(exp, f)):
+            raise AssertionError(f'the app wrote no {f}')
+    missing = [w for w in ('segment_sum', 'paged_gather', 'paged_scatter')
+               if launches[w] <= 0]
+    if missing:
+        raise AssertionError(f'the app launched no {missing}')
+    return launches
+
+
 RANGES = ('step/draws', 'step/decode', 'trace/march', 'trace/group',
           'trace/compact', 'field/encode', 'field/paged_encode',
           'field/finish', 'field/head', 'trace/integrate', 'step/rate_loss',
@@ -1231,6 +1381,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log('phase modes:')
     launches.update(phase_modes('cuda'))
+    log('phase app:')
+    launches['app'] = phase_app('cuda')
+    torch.cuda.empty_cache()
     # each kernel's launches come from the path it serves: B1 from the flat
     # lego run, B2 and B3 from the paged one (which also runs B1(b)), B2
     # with its occupancy row from the 'kernel' run; launches_by_path adds
@@ -1262,7 +1415,7 @@ def main(argv=None) -> int:
                         'library_ms': row['library_ms'],
                         **{c: row[c] for c in counts if c in row}})
     missing = [k['name'] for k in kernels if k['launches'] <= 0]
-    for path in ('paged', 'kernel', 'sustained'):
+    for path in ('paged', 'kernel', 'sustained', 'app'):
         for wrapper in ('segment_sum', 'paged_gather', 'paged_scatter'):
             if launches[path][wrapper] <= 0:
                 missing.append(f'{wrapper} ({path} path)')

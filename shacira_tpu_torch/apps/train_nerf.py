@@ -1,9 +1,15 @@
 """NeRF training app (PyTorch/CUDA).
 
-Port of ``shacira_tpu/apps/train_nerf.py`` without checkpointing, size
-report and turntable (later slices): loads a Blender-synthetic scene,
-trains with pruning, evaluates float PSNR on the held-out split and writes
-``metrics.json``.
+Port of ``shacira_tpu/apps/train_nerf.py`` for the latent grid on
+Blender-format data: loads a scene, trains with pruning and periodic
+validation and resume-state checkpoints (``--save-every``), optionally
+under the profiler (``--profile``), saves ``resume_state.ckpt`` and
+``model_best.ckpt``, evaluates PSNR, SSIM (and LPIPS with
+``SHACIRA_LPIPS_WEIGHTS``) on every held-out view, adds the compressed size
+report and writes ``metrics.json``, then ``val_view0.png`` and a 360-degree
+``turntable.gif`` (not with ``--metrics-only``).  ``--resume`` continues
+from ``resume_state.ckpt``, ``--pretrained`` starts from a model file, and
+``--valid-only`` evaluates ``model_best.ckpt`` without training.
 
 Usage:
     python -m shacira_tpu_torch.apps.train_nerf --config configs/nerf_lego.yaml \
@@ -16,21 +22,37 @@ import logging
 import os
 import sys
 
+import numpy as np
+import torch
+
 from shacira_tpu_torch import config as cfg_mod
 from shacira_tpu_torch.datasets.nerf_synthetic import load_nerf_synthetic
+from shacira_tpu_torch.models import pipeline
+from shacira_tpu_torch.models.nefs import nerf as nerf_mod
+from shacira_tpu_torch.render import offline
+from shacira_tpu_torch.tracers import rf_tracer
 from shacira_tpu_torch.trainers.multiview_trainer import MultiviewTrainer
+from shacira_tpu_torch.utils import checkpoint
+from shacira_tpu_torch.utils.perf import trace_to
 
 log = logging.getLogger('shacira_tpu_torch')
 
 
-def build_trainer(args, data, val_data=None) -> MultiviewTrainer:
+def build_trainer(args, data, val_data=None, log_dir=None) -> MultiviewTrainer:
     """Trainer for parsed args on loaded data."""
     return MultiviewTrainer(
         cfg_mod.build_nerf_trainer_config(args),
         cfg_mod.build_nerf_model_config(args),
         cfg_mod.build_tracer_config(args), data,
         num_rays=args.num_rays_sampled_per_img, seed=args.seed,
-        device=args.device, val_dataset=val_data)
+        device=args.device, val_dataset=val_data, log_dir=log_dir)
+
+
+def _install_params(trainer, path: str):
+    """The params of the model file ``path`` into ``trainer``."""
+    params = checkpoint.load_model(path, device=trainer.device)['params']
+    checkpoint.check_like(params, trainer.params, path)
+    trainer.set_params(params, trainer.opt_state)
 
 
 def main(argv=None):
@@ -53,26 +75,97 @@ def main(argv=None):
              args.dataset_split, data.h, data.w)
     try:
         val_data = load('val')
+        log.info('Loaded %d val views', val_data.num_views)
     except (FileNotFoundError, ValueError):
         val_data = None
         log.warning('No val split found; validating on the training split')
 
-    trainer = build_trainer(args, data, val_data)
+    trainer = build_trainer(args, data, val_data, log_dir)
+    if args.pretrained:
+        _install_params(trainer, args.pretrained)
+        log.info('Loaded pretrained model from %s', args.pretrained)
+    resume_path = os.path.join(log_dir, 'resume_state.ckpt')
+    if args.resume and os.path.exists(resume_path):
+        checkpoint.restore_trainer(trainer, resume_path)
+        log.info('Resumed at iteration %d', trainer.iteration)
+
+    best_path = os.path.join(log_dir, 'model_best.ckpt')
     if not args.valid_only:
         def log_entry(e):
             log.info(' | '.join(f'{k} {v:.4g}' if isinstance(v, float)
                                 else f'{k} {v}' for k, v in e.items()))
-        trainer.train(log_fn=log_entry)
 
+        with trace_to(os.path.join(log_dir, 'profile')
+                      if args.profile else None):
+            trainer.train(log_fn=log_entry)
+        checkpoint.save_trainer(trainer, resume_path)
+        best = (trainer.val_best_params if trainer.val_best_params is not None
+                else trainer.params)
+        checkpoint.save_model(
+            best_path, best, model_format=args.model_format,
+            configs={'model': trainer.model_cfg, 'tracer': trainer.tracer_cfg,
+                     'trainer': trainer.cfg})
+    elif os.path.exists(best_path):
+        _install_params(trainer, best_path)
+        log.info('valid-only: loaded model_best.ckpt')
+    elif not args.pretrained:
+        raise FileNotFoundError(
+            f'--valid-only evaluates a trained model, and there is no '
+            f'{best_path} and no --pretrained')
+
+    # every view of the held-out split
     eval_data = val_data if val_data is not None else data
-    metrics = trainer.evaluate(view_indices=range(eval_data.num_views),
-                               dataset=eval_data)
+    val_views = list(range(eval_data.num_views))
+    metrics = trainer.evaluate(view_indices=val_views, dataset=eval_data)
     metrics['split'] = 'val' if val_data is not None else args.dataset_split
-    metrics['num_eval_views'] = eval_data.num_views
-    log.info('Validation (%s): PSNR %.2f', metrics['split'], metrics['psnr'])
+    metrics['views'] = 'all'
+    metrics['num_eval_views'] = len(val_views)
+    metrics.update(trainer.size_report(use_codec=True))
+    log.info('Validation (%s): PSNR %.2f | SSIM %.4f', metrics['split'],
+             metrics['psnr'], metrics['ssim'])
     with open(os.path.join(log_dir, 'metrics.json'), 'w') as f:
         json.dump(metrics, f, indent=2)
+
+    if not args.metrics_only:
+        offline.save_png(os.path.join(log_dir, 'val_view0.png'),
+                         trainer.render_view(val_views[0], dataset=eval_data))
+        offline.save_gif(render_turntable(trainer, args),
+                         os.path.join(log_dir, 'turntable.gif'))
     return 0
+
+
+def render_turntable(trainer, args, num_angles: int = None, res: int = None):
+    """``num_angles`` frames of a 360-degree turntable (``res`` pixels
+    square, default the dataset's size) around the trained field: the
+    codebook decoded once, the field traced in 16,384-ray batches with the
+    trainer's tracer config, as the JAX app renders it."""
+    if args.overlay_layers:
+        raise NotImplementedError('turntable overlay layers are not ported '
+                                  'yet (ROADMAP Queue A item 14)')
+    d = trainer.dataset
+    if num_angles is None:
+        num_angles = args.num_angles
+    if res is None:
+        res = args.turntable_res or max(d.h, d.w)
+    cam = offline.CameraConfig(width=res, height=res, fov=30.0,
+                               dist_min=float(d.dist_min),
+                               dist_max=float(d.dist_max))
+    mcfg, tcfg = trainer.model_cfg, trainer.tracer_cfg
+    params = trainer.params
+    decoded = pipeline.decode_once(params, mcfg.grid)
+
+    def field_fn(coords, dirs):
+        return nerf_mod.nerf_rgba(params, mcfg, coords, dirs, decoded=decoded)
+
+    def trace_fn(rays, generator: torch.Generator):
+        return rf_tracer.trace(field_fn, trainer.occ_state, mcfg.occ_cfg,
+                               tcfg, rays, generator)
+
+    origin = np.asarray(args.camera_origin, np.float32)
+    radius = float(np.linalg.norm(origin[[0, 2]]))
+    return list(offline.turntable(trace_fn, cam, num_angles=num_angles,
+                                  radius=radius, elevation=float(origin[1]),
+                                  device=trainer.device))
 
 
 if __name__ == '__main__':

@@ -5,9 +5,9 @@ as YAML sections; a YAML file given with ``--config`` sets parser defaults
 (explicit CLI flags win) with one level of ``parent:`` inheritance, and an
 unknown key raises.  The flag surface is the JAX package's, so
 ``configs/nerf_base.yaml`` and ``configs/nerf_lego.yaml`` load as they are.
-Options whose code path is not ported yet (checkpoints, other grid types
-and decoders, the voxel march) raise ``NotImplementedError`` naming their
-ROADMAP item; ``--rng-impl`` selects a JAX generator and is
+Options whose code path is not ported yet (other grid types and decoders,
+the voxel march, TensorBoard renders) raise ``NotImplementedError`` naming
+their ROADMAP item; ``--rng-impl`` selects a JAX generator and is
 accepted without effect (the port draws from one ``torch.Generator``).
 """
 from __future__ import annotations
@@ -278,10 +278,6 @@ def build_nerf_model_config(args):
 def build_nerf_trainer_config(args):
     from shacira_tpu_torch.trainers.multiview_trainer import (
         MultiviewTrainerConfig)
-    if args.resume or args.pretrained:
-        _not_ported('checkpoint resume / pretrained', 'Queue A item 7a')
-    if 0 < args.save_every <= args.epochs:
-        _not_ported('save_every checkpoints', 'Queue A item 7a')
     if 0 < args.render_tb_every <= args.epochs:
         _not_ported('render_tb_every', 'Queue A item 14')
     return MultiviewTrainerConfig(
@@ -298,7 +294,8 @@ def build_nerf_trainer_config(args):
         prune_every=args.prune_every, random_lod=args.random_lod,
         adaptive_budget=args.adaptive_budget,
         budget_headroom=args.budget_headroom, min_budget=args.min_budget,
-        chunk_size=args.chunk_size, valid_every=args.valid_every)
+        chunk_size=args.chunk_size, valid_every=args.valid_every,
+        save_every=args.save_every)
 
 
 def build_tracer_config(args):

@@ -6,26 +6,31 @@ quantized (STE/SGA), decoded by a learned decoder into hash-grid features,
 and a learned entropy model gives the rate loss.  On the paged layout the
 block-local LODs are interpolated as raw latents on segment-grouped rows
 (:func:`paged_zbar`, kernels B2/B3) and decoded after interpolation
-(:func:`paged_finish`), which is exact for an affine decoder.  Size accounting
-and the codestream wait for ROADMAP Queue A item 7 (later slice); the multi
-and hierarchical decoders for item 10.
+(:func:`paged_finish`), which is exact for an affine decoder.  The size
+accounting (:func:`grid_size_bits`) and the latent codestream
+(:func:`encode_grid_stream`) run on the host through ``ops/coding.py``;
+the multi and hierarchical decoders wait for ROADMAP Queue A item 10.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from shacira_tpu_torch.ops import coding
 from shacira_tpu_torch.ops import paged_hash as ph
 from shacira_tpu_torch.ops.hashgrid import (
     PAGE_RES, HashGridSpec, geometric_resolutions, hash_encode,
     hash_encode_affine)
 from shacira_tpu_torch.models.latent_decoders import (
     LatentDecoderConfig, latent_decoder_init, latent_decoder_apply,
-    latent_decoder_is_affine, latent_decoder_affine_parts)
+    latent_decoder_is_affine, latent_decoder_affine_parts,
+    latent_decoder_size_bits, tensor_bits)
 from shacira_tpu_torch.models.prob_models import (
-    BitEstimatorConfig, bit_estimator_init, entropy_bits)
+    BitEstimatorConfig, bit_estimator_apply, bit_estimator_init,
+    entropy_bits)
 
 
 @dataclass(frozen=True)
@@ -244,3 +249,146 @@ def ent_loss(params: dict, cfg: LatentGridConfig, noise: torch.Tensor, *,
     weight = torch.round(cb) if is_val else cb + noise
     total = entropy_bits(params['prob_model'], cfg.prob_cfg, weight)
     return total / cb.shape[0], total
+
+
+# ---------------------------------------------------------------------------
+# Size accounting and the latent codestream (host side).  Pass a grid whose
+# codebook already lies on the host (``MultiviewTrainer.size_report`` copies
+# it there once per report): each function below reads it as numpy.
+# ---------------------------------------------------------------------------
+
+def _host(t) -> np.ndarray:
+    """numpy view of a CPU tensor (a copy of a CUDA one)."""
+    return t.detach().cpu().numpy()
+
+
+def _rounded_channel(cb: np.ndarray, c: int) -> np.ndarray:
+    return np.round(cb[:, c]).astype(np.int64)
+
+
+def stream_side_info_bits(params: dict) -> int:
+    """Bits of side information a histogram-coded latent stream needs to
+    be decodable: per latent channel the symbol count (32), the alphabet
+    size (16), the alphabet values (int16 each) and a 16-bit quantized CDF
+    entry per symbol."""
+    cb = _host(params['codebook'])
+    bits = 0
+    for c in range(cb.shape[1]):
+        w = _rounded_channel(cb, c)
+        if np.abs(w).max(initial=0) >= 2 ** 15:
+            raise ValueError(f'latent magnitude {np.abs(w).max()} overflows '
+                             'the int16 alphabet encoding of the side info')
+        a = int(np.unique(w).shape[0])
+        bits += 32 + 16 + a * 16 + a * 16
+    return bits
+
+
+def prob_model_size_bits(params: dict) -> int:
+    """f32 bits of the BitEstimator parameters: the side information of
+    the prob-model-coded stream (its decoder evaluates the model CDF)."""
+    if 'prob_model' not in params:
+        return 0
+    return sum(t.nelement() for layer in params['prob_model'].values()
+               for t in layer.values()) * 32
+
+
+def _model_probs(params: dict, cfg: LatentGridConfig, uniq: np.ndarray,
+                 c: int) -> np.ndarray:
+    """Prob-model mass ``CDF(u + .5) - CDF(u - .5)`` of the integer symbols
+    ``uniq`` of latent channel ``c`` (f32, on the model's device)."""
+    pm = params['prob_model']
+    dev = pm['f4']['h'].device
+
+    def cdf(x):
+        return bit_estimator_apply(
+            pm, cfg.prob_cfg, torch.as_tensor(x.astype(np.float32),
+                                              device=dev), single_channel=c)
+
+    with torch.no_grad():
+        return _host(cdf(uniq + 0.5) - cdf(uniq - 0.5))
+
+
+def _check_single_decoder(cfg: LatentGridConfig):
+    if cfg.ldecode_type != 'single':
+        raise NotImplementedError(
+            f'size of ldecode_type={cfg.ldecode_type!r}: multi/hierarchical '
+            'decoders are ROADMAP Queue A item 10')
+
+
+def grid_size_bits(params: dict, cfg: LatentGridConfig, *,
+                   use_codec: bool = False, use_prob_model: bool = False,
+                   count_side_info: bool = False):
+    """(decoder_bits, latent_bits) of the compressed grid.
+
+    Per latent channel, the bits of the rounded codebook: the histogram
+    entropy estimate, or with ``use_codec`` the length of a real arithmetic
+    codestream; with ``use_prob_model`` under the BitEstimator's CDF
+    instead of the histogram.  ``count_side_info`` adds what the stream
+    needs to be decodable: the alphabet and quantized CDF per channel
+    (:func:`stream_side_info_bits`), or the prob model's parameters
+    (:func:`prob_model_size_bits`)."""
+    if cfg.ldec is None:
+        # an uncompressed hash grid: the raw table
+        return 0, tensor_bits(params['codebook'])
+    _check_single_decoder(cfg)
+    ldec_bits = latent_decoder_size_bits(params['latent_dec'])
+    cb = _host(params['codebook'])
+    codebook_bits = 0.0
+    for c in range(cb.shape[1]):
+        w = _rounded_channel(cb, c)
+        if use_prob_model:
+            uniq, counts = np.unique(w, return_counts=True)
+            probs = _model_probs(params, cfg, uniq, c)
+            if use_codec:
+                codebook_bits += coding.coded_size_bits(w, probs=probs)
+            else:
+                info = np.clip(-np.log(probs + 1e-10) / np.log(2.0), 0, 1000)
+                codebook_bits += float(np.sum(info * counts))
+        elif use_codec:
+            codebook_bits += coding.coded_size_bits(w)
+        else:
+            codebook_bits += coding.entropy_bits_histogram(w)
+    if count_side_info:
+        codebook_bits += (prob_model_size_bits(params) if use_prob_model
+                          else stream_side_info_bits(params))
+    return ldec_bits, codebook_bits
+
+
+def encode_grid_stream(params: dict, cfg: LatentGridConfig, *,
+                       use_prob_model: bool = False) -> dict:
+    """The rounded latent codebook as arithmetic codestreams, one per
+    channel: symbols ``round(cb[:, c])`` over their dense alphabet, coded
+    with the histogram CDF (or the BitEstimator's with
+    ``use_prob_model``), with what :func:`decode_grid_stream` needs."""
+    _check_single_decoder(cfg)
+    cb = _host(params['codebook'])
+    channels = []
+    for c in range(cb.shape[1]):
+        w = _rounded_channel(cb, c)
+        uniq, inv = np.unique(w, return_inverse=True)
+        if use_prob_model:
+            probs = np.maximum(_model_probs(params, cfg, uniq, c), 1e-10)
+            probs = probs / probs.sum()
+        else:
+            counts = np.bincount(inv)
+            probs = counts / counts.sum()
+        stream = coding.ArithmeticCoder.encode(inv, probs)
+        channels.append({'stream': stream, 'alphabet': uniq, 'probs': probs,
+                         'n': int(w.shape[0])})
+    return {'channels': channels, 'latent_dim': cb.shape[1]}
+
+
+def decode_grid_stream(blob: dict) -> np.ndarray:
+    """Inverse of :func:`encode_grid_stream`: ``round(codebook)`` [T, ld]."""
+    cols = []
+    for ch in blob['channels']:
+        inv = coding.ArithmeticCoder.decode(ch['stream'], ch['probs'],
+                                            ch['n'])
+        cols.append(ch['alphabet'][inv])
+    return np.stack(cols, axis=1).astype(np.float32)
+
+
+def rounding_loss(params: dict) -> torch.Tensor:
+    """mean |w - round(w)| of the codebook (a diagnostic)."""
+    cb = params['codebook']
+    return torch.mean(torch.abs(cb - torch.round(cb)))

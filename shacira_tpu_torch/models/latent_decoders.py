@@ -181,6 +181,19 @@ def latent_decoder_affine_parts(params: dict, cfg: LatentDecoderConfig,
     return z, matrix, shift
 
 
+def tensor_bits(t: torch.Tensor) -> int:
+    """Bits of a tensor in its stored dtype."""
+    return t.nelement() * t.element_size() * 8
+
+
+def latent_decoder_size_bits(params: dict) -> int:
+    """Bits of every decoder parameter in its stored dtype, the fixed DFT
+    basis and the frozen ``div`` vector included."""
+    return (sum(tensor_bits(v) for layer in params['layers']
+                for v in layer.values())
+            + tensor_bits(params['div']))
+
+
 def scale_norm(params: dict) -> torch.Tensor:
     """Frobenius norm of the single decode matrix (scales the grid lr)."""
     return torch.linalg.norm(params['layers'][0]['scale'])

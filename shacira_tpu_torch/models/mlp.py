@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from shacira_tpu_torch.models.latent_decoders import tensor_bits
+
 _ACTIVATIONS = {
     'none': lambda x: x,
     'identity': lambda x: x,
@@ -98,3 +100,10 @@ def mlp_apply(params: dict, cfg: MLPConfig, x: torch.Tensor,
     if 'b' in layers[-1]:
         out = out + cast(layers[-1]['b'])
     return out
+
+
+def mlp_size_bits(params: dict) -> int:
+    """Bits of the weights and biases in their stored dtype (f32: the
+    ``compute_dtype`` cast happens at apply time and is not stored)."""
+    return sum(tensor_bits(v) for layer in params['layers']
+               for v in layer.values())

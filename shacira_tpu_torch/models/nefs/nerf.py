@@ -25,7 +25,8 @@ from shacira_tpu_torch.accel import occupancy as occ
 from shacira_tpu_torch.models.embedders import (
     PositionalEmbedderConfig, positional_embed)
 from shacira_tpu_torch.models.grids import latent_grid as lg
-from shacira_tpu_torch.models.mlp import MLPConfig, mlp_apply, mlp_init
+from shacira_tpu_torch.models.mlp import (
+    MLPConfig, mlp_apply, mlp_init, mlp_size_bits)
 from shacira_tpu_torch.ops import paged_hash as ph
 
 
@@ -272,3 +273,9 @@ def prune(params: dict, cfg: NeuralRadianceFieldConfig, occ_state: dict,
     return occ.prune_update(occ_state, cfg.occ_cfg, density,
                             density_decay=cfg.prune_density_decay,
                             min_density=cfg.prune_min_density)
+
+
+def non_grid_size_bits(params: dict) -> int:
+    """Bits of the density and colour MLPs as stored."""
+    return (mlp_size_bits(params['decoder_density'])
+            + mlp_size_bits(params['decoder_color']))

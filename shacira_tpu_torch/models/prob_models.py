@@ -42,11 +42,15 @@ def _softplus(x):
     return torch.log1p(torch.exp(-torch.abs(x))) + torch.clamp(x, min=0)
 
 
-def _bitparm_apply(layer, cfg: BitEstimatorConfig, x, final: bool):
-    h, b = layer['h'], layer['b']
+def _bitparm_apply(layer, cfg: BitEstimatorConfig, x, final: bool,
+                   single_channel=None):
+    def sel(p):
+        return p if single_channel is None else p[:, single_channel]
+
+    h, b = sel(layer['h']), sel(layer['b'])
     if final:
         return torch.sigmoid(x * _softplus(h) + b)
-    a = layer['a']
+    a = sel(layer['a'])
     if cfg.is_unimodal:
         a = torch.abs(a)
     x = x * _softplus(h) + b
@@ -54,12 +58,15 @@ def _bitparm_apply(layer, cfg: BitEstimatorConfig, x, final: bool):
 
 
 def bit_estimator_apply(params: dict, cfg: BitEstimatorConfig,
-                        x: torch.Tensor) -> torch.Tensor:
-    """CDF(x) for x [..., channels]; ``num_layers`` gates f1..f3."""
+                        x: torch.Tensor, single_channel=None) -> torch.Tensor:
+    """CDF(x) for x [..., channels], or x [...] of the one channel
+    ``single_channel``; ``num_layers`` gates f1..f3."""
     for i in range(1, 4):
         if cfg.num_layers > i:
-            x = _bitparm_apply(params[f'f{i}'], cfg, x, final=False)
-    return _bitparm_apply(params['f4'], cfg, x, final=True)
+            x = _bitparm_apply(params[f'f{i}'], cfg, x, final=False,
+                               single_channel=single_channel)
+    return _bitparm_apply(params['f4'], cfg, x, final=True,
+                          single_channel=single_channel)
 
 
 def entropy_bits(params: dict, cfg: BitEstimatorConfig, weight: torch.Tensor,

@@ -34,11 +34,19 @@ Semantics kept from the JAX package:
 Every random draw of a step (SGA uniforms, rate-loss noise, march jitter)
 is a :class:`StepDraws` argument of :meth:`MultiviewTrainer.step`, and the
 probes take their jitter as an argument; the trainer draws them from its
-``torch.Generator``.  Checkpoint and resume, size reports, SSIM and meshes
+``torch.Generator``.
+
+Around training, as in the JAX package: validation keeps a host copy of
+the best parameters (``val_best_params``), ``save_every`` epochs write
+``log_dir/resume_state.ckpt`` (``utils/checkpoint.py``), :meth:`evaluate`
+returns PSNR, SSIM and, with ``SHACIRA_LPIPS_WEIGHTS`` set, LPIPS, and
+:meth:`size_report` gives the compressed size in kB from real arithmetic
+codestreams of the rounded latents.  Meshes and the TensorBoard renders
 wait for later slices (ROADMAP Queue A).
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, replace
 from typing import Dict, Optional
@@ -56,9 +64,11 @@ from shacira_tpu_torch.models.grids import latent_grid as lg
 from shacira_tpu_torch.models.latent_decoders import scale_norm, sga_uniform
 from shacira_tpu_torch.models.nefs import nerf as nerf_mod
 from shacira_tpu_torch.models.nefs.nerf import NeuralRadianceFieldConfig
+from shacira_tpu_torch.ops import lpips as lpips_mod
 from shacira_tpu_torch.ops import paged_hash as ph
-from shacira_tpu_torch.ops.image import psnr
+from shacira_tpu_torch.ops.image import psnr, ssim
 from shacira_tpu_torch.tracers import rf_tracer
+from shacira_tpu_torch.utils import checkpoint
 
 
 @dataclass
@@ -94,6 +104,7 @@ class MultiviewTrainerConfig:
     chunk_size: int = 100
     valid_every: int = -1             # epochs between validations
     valid_views: int = 4
+    save_every: int = -1              # epochs between resume_state.ckpt
 
 
 @dataclass
@@ -138,7 +149,7 @@ class MultiviewTrainer:
                  model_cfg: NeuralRadianceFieldConfig,
                  tracer_cfg: rf_tracer.RFTracerConfig, dataset,
                  num_rays: int, seed: int = 0, device=None,
-                 val_dataset=None):
+                 val_dataset=None, log_dir: Optional[str] = None):
         self.cfg = cfg
         self.model_cfg = model_cfg
         if model_cfg.grid.hash_layout == 'paged':
@@ -162,7 +173,9 @@ class MultiviewTrainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.np_rng = np.random.RandomState(seed)
+        self.log_dir = log_dir
         self.best_val_psnr = -np.inf
+        self.val_best_params = None
 
         gcfg = model_cfg.grid
         self.ldecode_enabled = gcfg.ldec is not None
@@ -215,6 +228,13 @@ class MultiviewTrainer:
         self.params = params
         self.opt_state = (opt_state if opt_state is not None
                           else optim.adam_init(params))
+
+    def set_occupancy(self, occ_state: dict):
+        """Install an occupancy state and rebuild the grids derived from
+        it."""
+        self.occ_state = occ_state
+        if self.tracer_cfg.segment_size > 0:
+            self._refresh_coarse()
 
     def _refresh_coarse(self):
         """Recompute the segmented march's grids derived from the occupancy
@@ -363,10 +383,8 @@ class MultiviewTrainer:
         if u is None:
             u = torch.rand((ocfg.num_cells, 3), generator=self.generator,
                            device=self.device)
-        self.occ_state = nerf_mod.prune(self.params, self.model_cfg,
-                                        self.occ_state, u)
-        if self.tracer_cfg.segment_size > 0:
-            self._refresh_coarse()
+        self.set_occupancy(nerf_mod.prune(self.params, self.model_cfg,
+                                          self.occ_state, u))
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -483,12 +501,13 @@ class MultiviewTrainer:
                 next_prune = ((self.iteration // cfg.prune_every) + 1) \
                     * cfg.prune_every
                 n = min(n, next_prune - self.iteration)
-            if cfg.valid_every > 0:
-                e_cur = self._epoch_of(it0)
-                nxt = (((e_cur - 1) // cfg.valid_every) + 1) \
-                    * cfg.valid_every * self.iters_per_epoch
-                n = min(n, max(1, nxt - self.iteration))
+            # chunks stop at the validation and checkpoint epochs
             e0 = self._epoch_of(it0)
+            for every in (cfg.valid_every, cfg.save_every):
+                if every > 0:
+                    nxt = (((e0 - 1) // every) + 1) * every \
+                        * self.iters_per_epoch
+                    n = min(n, max(1, nxt - self.iteration))
             use_sga = (self.ldecode_enabled and cfg.use_sga
                        and (e0 / cfg.epochs) <= cfg.decay_period)
             # drawn before the ray batches, from the same stream, as the
@@ -534,7 +553,8 @@ class MultiviewTrainer:
         return {'iterations': self.iteration, 'elapsed': time.time() - t0}
 
     def _post_chunk(self, log_fn=None):
-        """Validation at epoch boundaries (``valid_every``)."""
+        """At epoch boundaries: validation (``valid_every``) and the
+        resume-state checkpoint (``save_every``, into ``log_dir``)."""
         cfg = self.cfg
         if self.iteration % self.iters_per_epoch != 0:
             return
@@ -543,16 +563,24 @@ class MultiviewTrainer:
             m = self.validate()
             if log_fn:
                 log_fn({'epoch': e, 'valid_psnr': m['psnr'],
+                        'valid_ssim': m['ssim'],
                         'best_val_psnr': self.best_val_psnr})
+        if cfg.save_every > 0 and e % cfg.save_every == 0 and self.log_dir:
+            checkpoint.save_trainer(
+                self, os.path.join(self.log_dir, 'resume_state.ckpt'))
 
     def validate(self) -> Dict[str, float]:
-        """Render ``valid_views`` evenly spaced held-out views and track the
-        best validation PSNR."""
+        """Render ``valid_views`` evenly spaced held-out views; on a new
+        best validation PSNR keep a host copy of the params
+        (``val_best_params``: Adam updates ``self.params`` in place)."""
         d = self.val_dataset or self.dataset
         stride = max(1, d.num_views // max(1, self.cfg.valid_views))
         m = self.evaluate(view_indices=range(0, d.num_views, stride),
                           dataset=d)
-        self.best_val_psnr = max(self.best_val_psnr, m['psnr'])
+        if m['psnr'] > self.best_val_psnr:
+            self.best_val_psnr = m['psnr']
+            self.val_best_params = optim.tree_map(
+                lambda t: t.detach().to('cpu', copy=True), self.params)
         return m
 
     # ------------------------------------------------------------------
@@ -610,13 +638,65 @@ class MultiviewTrainer:
         return out.reshape(d.h, d.w, 3)
 
     def evaluate(self, view_indices=None, dataset=None) -> Dict[str, float]:
-        """Mean float PSNR over views."""
+        """Mean float PSNR and SSIM over views, and LPIPS(VGG) when
+        ``SHACIRA_LPIPS_WEIGHTS`` names a weight file (``ops/lpips.py``)."""
         d = dataset if dataset is not None else self.dataset
         if view_indices is None:
             view_indices = range(d.num_views)
-        psnrs = []
+        lpips_w = None
+        if os.environ.get(lpips_mod.ENV_VAR):
+            lpips_w = lpips_mod.load_lpips_weights(device=self.device)
+        psnrs, ssims, lpipses = [], [], []
         for v in view_indices:
-            pred = torch.as_tensor(self.render_view(v, dataset=d))
-            gtv = torch.as_tensor(d.rgb[v].reshape(d.h, d.w, 3))
+            pred = torch.as_tensor(self.render_view(v, dataset=d),
+                                   device=self.device)
+            gtv = torch.as_tensor(d.rgb[v].reshape(d.h, d.w, 3),
+                                  device=self.device)
             psnrs.append(float(psnr(pred, gtv)))
-        return {'psnr': float(np.mean(psnrs))}
+            ssims.append(float(ssim(pred, gtv)))
+            if lpips_w is not None:
+                lpipses.append(lpips_mod.lpips(torch.clamp(pred, 0, 1), gtv,
+                                               weights=lpips_w))
+        out = {'psnr': float(np.mean(psnrs)), 'ssim': float(np.mean(ssims))}
+        if lpipses:
+            out['lpips'] = float(np.mean(lpipses))
+        return out
+
+    def size_report(self, use_codec: bool = False, params=None
+                    ) -> Dict[str, float]:
+        """Decoder, latent, MLP and total sizes in kB.  With ``use_codec``
+        the latent size is the length of real arithmetic codestreams, and,
+        with an entropy model, the smaller decodable stream of two: the
+        histogram-coded one (``latent_size_kb_hist``, with its alphabet and
+        CDF side information) or the prob-model-coded one
+        (``latent_size_kb_pm``, with the model's parameters); ``stream``
+        names the one chosen.  The grid is copied to the host once."""
+        params = params if params is not None else self.params
+        gcfg = self.model_cfg.grid
+        if not isinstance(gcfg, lg.LatentGridConfig):
+            raise NotImplementedError('size of the octree, codebook and '
+                                      'triplanar backbones: ROADMAP Queue A '
+                                      'item 12')
+        grid = optim.tree_map(lambda t: t.detach().cpu(), params['grid'])
+        has_pm = use_codec and 'prob_model' in grid
+        ldec_bits, latent_bits = lg.grid_size_bits(
+            grid, gcfg, use_codec=use_codec, count_side_info=has_pm)
+        rest = nerf_mod.non_grid_size_bits(params)
+        out = {}
+        if has_pm:
+            _, pm_bits = lg.grid_size_bits(grid, gcfg, use_codec=use_codec,
+                                           use_prob_model=True,
+                                           count_side_info=True)
+            out['latent_size_kb_hist'] = latent_bits / 8e3
+            out['total_size_kb_hist'] = (ldec_bits + latent_bits
+                                         + rest) / 8e3
+            out['latent_size_kb_pm'] = pm_bits / 8e3
+            out['stream'] = ('histogram' if latent_bits <= pm_bits
+                             else 'prob_model')
+            latent_bits = min(latent_bits, pm_bits)
+        total = ldec_bits + latent_bits + rest
+        out.update({'ldec_size_kb': ldec_bits / 8e3,
+                    'latent_size_kb': latent_bits / 8e3,
+                    'remainder_size_kb': rest / 8e3,
+                    'total_size_kb': total / 8e3})
+        return out

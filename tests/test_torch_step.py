@@ -241,15 +241,20 @@ def test_config_rejects_unknown_keys_and_unported_options(tmp_path):
     bad.write_text('grid:\n    not_an_option: 3\n')
     with pytest.raises(ValueError):
         tconfig.parse_args(tconfig.build_nerf_parser(), ['--config', str(bad)])
-    # other grid backbones (ROADMAP item 12) and checkpoints (7a)
+    # other grid backbones (ROADMAP item 12) and TensorBoard renders (14)
     args = tconfig.parse_args(tconfig.build_nerf_parser(),
                               ['--grid-type', 'OctreeGrid'])
     with pytest.raises(NotImplementedError, match='item 12'):
         tconfig.build_nerf_model_config(args)
     args = tconfig.parse_args(tconfig.build_nerf_parser(),
-                              ['--resume', 'true'])
-    with pytest.raises(NotImplementedError, match='item 7a'):
+                              ['--render-tb-every', '5'])
+    with pytest.raises(NotImplementedError, match='item 14'):
         tconfig.build_nerf_trainer_config(args)
+    # checkpoints are ported: resume, pretrained and save_every pass
+    args = tconfig.parse_args(tconfig.build_nerf_parser(),
+                              ['--resume', 'true', '--save-every', '1',
+                               '--pretrained', 'model_best.ckpt'])
+    assert tconfig.build_nerf_trainer_config(args).save_every == 1
 
 
 @pytest.mark.parametrize('name,kw', [
