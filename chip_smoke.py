@@ -72,7 +72,24 @@ Phases, each of which must pass (exit code 1 otherwise):
                weights and the size report, the checkpoints, the saved view
                and the turntable; the checkpoint, evaluation, size-report
                and turntable calls timed; B1(b), B2 and B3 must have
-               launched.
+               launched;
+11. image_kernels -- B1 as the image path's 2D hash backward: kodak's grid
+               (40,282 rows) on the 512 x 768 pixel lattice in row-major
+               order and in ImageDataset('full')'s shuffled order, and
+               pearl's (39,727,145 rows) at 2^18 random pixels, checked and
+               timed as in phase 2;
+12. image_parity -- one small image step on the card against the same
+               step on the CPU, full-image and 'wreplace';
+13. image   -- ``apps/train_image.main`` with configs/kodak.yaml at full
+               width on two procedural 512 x 768 photos, 300 epochs (the
+               SGA -> STE flip at 270), then ``--valid-only`` (each PSNR
+               within 0.75 dB); B1 once a step; the step timed (Mpix/s)
+               and profiled;
+14. pearl   -- the app with configs/pearl.yaml at its widths on a
+               procedural 2048 x 2048 photo, 2 epochs of 16 'wreplace'
+               steps of 2^18 pixels, validation and a resume state every
+               epoch; those calls and the size report timed, peak memory;
+               B1 once a step; the step timed (samples/s) and profiled.
 
 The second-to-last lines are the card's name and power limit and the
 kernels JSON; the last line is the result JSON.  Exits non-zero without
@@ -1257,13 +1274,386 @@ def _drive_app(dev, tmp, train_nerf, write_nerf_scene, seconds, lines):
     return launches
 
 
-RANGES = ('step/draws', 'step/decode', 'trace/march', 'trace/group',
-          'trace/compact', 'field/encode', 'field/paged_encode',
-          'field/finish', 'field/head', 'trace/integrate', 'step/rate_loss',
-          'step/adam')
+# ---------------------------------------------------------------------------
+# The image INR path: kodak (full image) and pearl (sampled), kernel B1 as
+# the 2D hash backward.
+# ---------------------------------------------------------------------------
+
+KODAK_HW = (512, 768)          # bench.py's image stage: kodak's shape
+PEARL_HW = (2048, 2048)        # a procedural stand-in for the 67 Mpix image
+PEARL_SAMPLES = 1 << 18        # configs/pearl.yaml num_samples
+IMAGE_FLAGS = ['--epochs', '300', '--log-every', '100', '--save-every', '100']
+PEARL_FLAGS = ['--epochs', '2']
+IMAGE_TIMED_STEPS = 200
+# the calls timed in the pearl phase: (owner module or class, name)
+PEARL_TIMED = (('trainer', 'validate'), ('checkpoint', 'save_trainer'),
+               ('trainer', 'size_report'))
 
 
-def phase_profile(trainer, steps: int, label: str, step_ms: float):
+def _kodak_spec():
+    from shacira_tpu_torch.ops.hashgrid import (
+        HashGridSpec, geometric_resolutions)
+    return HashGridSpec(geometric_resolutions(16, 512, 24), 11, 2)
+
+
+def _pearl_spec():
+    from shacira_tpu_torch.ops.hashgrid import (
+        HashGridSpec, geometric_resolutions)
+    return HashGridSpec(geometric_resolutions(16, 10725, 16), 23, 2)
+
+
+def image_scatter_inputs(dev):
+    """B1's inputs on the image path, name -> (idx int32 [L * N * 4], vals
+    [L * N * 4, 1], table rows): the 2D hash backward's corner rows in the
+    ``[L, N, 4]`` order of ``hash_encode_affine``, each value a bilinear
+    corner weight times a random gradient, as the backward forms them:
+
+    * ``scatter_add_image``: kodak's grid (24 LODs 16..512, 2^11 a LOD,
+      40,282 rows) on the 512 x 768 pixel lattice in row-major order, as the
+      full-image step feeds it: 37,748,736 updates;
+    * ``scatter_add_image_shuffled``: the same pixels in the order of
+      ``ImageDataset('full')``'s permutation (seed 0);
+    * ``scatter_add_pearl``: pearl's grid (16 LODs to 10725, 2^23 a LOD,
+      39,727,145 rows) at 2^18 uniformly random pixels of a 2048^2 image:
+      16,777,216 updates."""
+    import torch
+    from shacira_tpu_torch.datasets.image import ImageDataset, pixel_coords
+    from shacira_tpu_torch.ops import hashgrid
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def rows(coords, spec):
+        gidx, w = hashgrid._all_corners(coords, spec)      # [L, N, 4]
+        g = torch.randn(gidx.shape[:2] + (1,), generator=gen, device=dev)
+        return (gidx.reshape(-1), (w * g).reshape(-1, 1), spec.total_size)
+
+    h, w = KODAK_HW
+    lattice = pixel_coords(h, w)
+    perm = ImageDataset(np.zeros((h, w, 3), np.float32)).shuffle_idx
+    kodak = _kodak_spec()
+    out = {'scatter_add_image': rows(torch.as_tensor(lattice, device=dev),
+                                     kodak),
+           'scatter_add_image_shuffled': rows(
+               torch.as_tensor(lattice[perm], device=dev), kodak)}
+    ph, pw = PEARL_HW
+    idx = torch.randint(0, ph * pw, (PEARL_SAMPLES,), generator=gen,
+                        device=dev)
+    coords = torch.stack([(torch.div(idx, pw, rounding_mode='floor')
+                           .double() / ph - 0.5) * 2.0,
+                          (torch.remainder(idx, pw).double() / pw - 0.5)
+                          * 2.0], dim=-1).float()
+    out['scatter_add_pearl'] = rows(coords, _pearl_spec())
+    return out
+
+
+def phase_image_kernels(dev):
+    """B1 at the image path's three shapes against its plain version, with
+    its time, bound, ``index_add_`` time and counted atomics."""
+    from shacira_tpu_torch.ops import scatter
+    use = {'scatter_add_image': 'kodak 2D hash backward, row-major pixels '
+                                '(the full-image step)',
+           'scatter_add_image_shuffled': "kodak 2D hash backward, "
+                                         "ImageDataset('full') order",
+           'scatter_add_pearl': 'pearl 2D hash backward, 2^18 random '
+                                'pixels'}
+    rows = {}
+    for name, (idx, vals, t) in image_scatter_inputs(dev).items():
+        rows[name] = check_scatter(name, idx, vals, t, scatter.scatter_add,
+                                   scatter.scatter_add_plain, reps=5)
+        rows[name].update(use=use[name],
+                          source='shacira_tpu_torch/csrc/scatter.cu',
+                          replaces='shacira_tpu/ops/pallas_scatter.py:29')
+        del idx, vals
+    return rows
+
+
+def _image_parity_model():
+    from shacira_tpu_torch.models.grids.latent_grid import LatentGridConfig
+    from shacira_tpu_torch.models.nefs.image import NeuralImageConfig
+    grid = LatentGridConfig.from_geometric(
+        feature_dim=1, num_lods=8, min_grid_res=8, max_grid_res=96,
+        latent_dim=1, multiscale_type='cat', resolution_dim=2,
+        feature_std=0.5, codebook_bitwidth=10, init_grid='uniform',
+        num_prob_layers=2, entropy_enabled=True
+    ).with_ldec(dict(norm='max', ldecode_matrix='sq', use_shift=True,
+                     ldec_std=0.1, use_sga=True, diff_sampling=True))
+    return NeuralImageConfig(grid=grid, hidden_dim=16)
+
+
+def phase_image_parity(dev):
+    """One small image step on the card against the same step on the CPU
+    (same params and draws), full-image and 'wreplace': loss to 1e-4, the
+    Adam first moments to 1e-3 of each leaf's largest entry, and B1
+    launched once by the card's step."""
+    import torch
+    from shacira_tpu_torch import optim
+    from shacira_tpu_torch.datasets.image import ImageDataset, pixel_coords
+    from shacira_tpu_torch.ops import scatter
+    from shacira_tpu_torch.trainers.image_trainer import (
+        ImageStepDraws, ImageTrainer, ImageTrainerConfig)
+    from tools.make_synthetic_data import synth_photo
+    h, w = 48, 64
+    img = np.round(synth_photo(h, w, seed=3) * 255) / 255
+    mcfg = _image_parity_model()
+    cfg = ImageTrainerConfig(epochs=10, use_sga=True, norm='max',
+                             entropy_reg=1e-3, entropy_reg_end=1e-3)
+    for mode, ns in (('full', -1), ('wreplace', 1000)):
+        cpu = ImageTrainer(cfg, mcfg, ImageDataset(img, ns, mode),
+                           device='cpu')
+        gpu = ImageTrainer(cfg, mcfg, ImageDataset(img, ns, mode), device=dev)
+        gpu.set_params(optim.tree_map(lambda t: t.detach().clone().to(dev),
+                                      cpu.params))
+        d = cpu.draw_step(use_sga=True)
+        if mode == 'full':
+            c = torch.as_tensor(pixel_coords(h, w))
+            batches = ((c, torch.as_tensor(cpu.dataset.rgb)),
+                       (c.to(dev), torch.as_tensor(cpu.dataset.rgb,
+                                                   device=dev)))
+        else:
+            cpu._sampling_setup()
+            gpu._sampling_setup()
+            batches = (cpu.pixel_batch(d.idx),
+                       gpu.pixel_batch(d.idx.to(dev)))
+        kw = dict(ent_lambda=1e-3, temperature=0.5, lr_ldec=1e-2,
+                  use_sga=True, do_recalib=True)
+        m_cpu = cpu.step(*batches[0], d, **kw)
+        before = scatter.scatter_add.launches
+        m_gpu = gpu.step(*batches[1], ImageStepDraws(
+            sga_u=d.sga_u.to(dev), noise=d.noise.to(dev)), **kw)
+        torch.cuda.synchronize()
+        b1 = scatter.scatter_add.launches - before
+        loss_c, loss_g = float(m_cpu['loss']), float(m_gpu['loss'])
+        mu_c = dict(optim.tree_leaves_with_path(cpu.opt_state['mu']))
+        worst, worst_path = 0.0, None
+        for path, m in optim.tree_leaves_with_path(gpu.opt_state['mu']):
+            scale = float(mu_c[path].abs().max())
+            if scale == 0.0:
+                continue
+            rel = float((m.cpu() - mu_c[path]).abs().max()) / scale
+            if rel >= worst:
+                worst, worst_path = rel, '/'.join(path)
+        log(f'  small image step ({mode}) card vs CPU: loss {loss_g:.7f} vs '
+            f'{loss_c:.7f}, psnr {float(m_gpu["psnr"]):.4f} vs '
+            f'{float(m_cpu["psnr"]):.4f}, Adam first moment max rel diff '
+            f'{worst:.3e} ({worst_path}), B1 launches {b1}')
+        if not (math.isfinite(loss_g)
+                and abs(loss_g - loss_c) <= 1e-4 * abs(loss_c)):
+            raise AssertionError(f'image step ({mode}): card loss disagrees '
+                                 'with the CPU step')
+        if not worst <= 1e-3:
+            raise AssertionError(f'image step ({mode}): card gradients '
+                                 'disagree with the CPU step')
+        if b1 != 1:
+            raise AssertionError(f'image step ({mode}): {b1} B1 launches')
+
+
+def _image_args(dev, config, images, log_dir, *extra):
+    return (['--config', os.path.join(ROOT, 'configs', config), '--device',
+             dev, '--dataset-path', images, '--log-dir', log_dir,
+             '--exp-name', 'run'] + list(extra))
+
+
+def _timed_image_block(args, image_path, epochs, label):
+    """A trainer of the app's ``args`` on one image, warmed up one epoch,
+    then ``epochs`` epochs timed (the card drained at both ends) and 3
+    profiled; returns (seconds a step, steps, the profile)."""
+    import torch
+    from shacira_tpu_torch.apps.train_image import build_trainer
+    from shacira_tpu_torch.datasets.image import ImageDataset, load_rgb
+    ds = ImageDataset(load_rgb(image_path), args.num_samples,
+                      args.sample_mode, args.seed)
+    trainer = build_trainer(args, ds)
+    trainer.train(epochs=1, finalize=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(epochs=epochs, finalize=False)
+    torch.cuda.synchronize()
+    steps = epochs * len(ds)
+    step_s = (time.perf_counter() - t0) / steps
+    per_profile = max(1, 3 // len(ds))
+    prof = phase_profile(trainer, per_profile * len(ds), label,
+                         step_s * 1e3, run=lambda: trainer.train(
+                             epochs=per_profile, finalize=False))
+    del trainer
+    torch.cuda.empty_cache()
+    return step_s, steps, prof
+
+
+def phase_image(dev):
+    """``apps/train_image.main`` with configs/kodak.yaml at full width (24
+    LODs 16..512, 2^11 a LOD, hidden 16, SGA, norm 'max' every 10, entropy
+    on) on two procedural Kodak-shaped photos
+    (``tools/make_synthetic_data.write_images(n=2, h=512, w=768)``):
+    ``IMAGE_FLAGS`` (300 epochs, so the SGA -> STE flip falls at 270; log
+    and resume state every 100), then ``--valid-only``, which must give
+    each image's PSNR within the JAX app test's 0.75 dB (the trained PSNR
+    is the best step's before its update, the reloaded model is after it).
+    Counts zeroed before the training run and read after: B1 once a step.
+    Then the step timed outside the app (Mpix/s as ``bench.py``'s
+    ``image_inr_train_mpix_per_s``) and profiled."""
+    import tempfile
+
+    import torch
+    from shacira_tpu_torch import config as cfg_mod
+    from shacira_tpu_torch.apps import train_image
+    from tools.make_synthetic_data import write_images
+    with tempfile.TemporaryDirectory() as tmp:
+        images = os.path.join(tmp, 'images')
+        t0 = time.perf_counter()
+        write_images(images, n=2, h=KODAK_HW[0], w=KODAK_HW[1])
+        log(f'  images: 2 of {KODAK_HW[0]} x {KODAK_HW[1]} in '
+            f'{time.perf_counter() - t0:.1f} s')
+        runs = os.path.join(tmp, 'runs')
+        argv = _image_args(dev, 'kodak.yaml', images, runs, *IMAGE_FLAGS)
+        _reset_launches()
+        t0 = time.perf_counter()
+        if train_image.main(argv) != 0:
+            raise AssertionError('the image app failed')
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        with open(os.path.join(runs, 'run', 'metrics.json')) as f:
+            trained = json.load(f)
+        t0 = time.perf_counter()
+        if train_image.main(argv + ['--valid-only']) != 0:
+            raise AssertionError('the image app failed with --valid-only')
+        valid_s = time.perf_counter() - t0
+        with open(os.path.join(runs, 'run', 'metrics.json')) as f:
+            valid = json.load(f)
+        files = sorted(os.listdir(os.path.join(runs, 'run', 'synth00')))
+        args = cfg_mod.parse_args(cfg_mod.build_image_parser(),
+                                  argv + ['--log-every', '-1'])
+        step_s, steps, prof = _timed_image_block(
+            args, os.path.join(images, 'synth00.png'), IMAGE_TIMED_STEPS,
+            'image (kodak), full image')
+    h, w = KODAK_HW
+    out = {'train_s': train_s, 'valid_only_s': valid_s,
+           'mean_step_ms': step_s * 1e3, 'timed_steps': steps,
+           'image_inr_train_mpix_per_s': h * w / step_s / 1e6,
+           'device_busy_ms_per_step': prof['device_busy_ms_per_step'],
+           'device_idle_share': prof['device_idle_share'],
+           'stream_syncs_per_step': prof['stream_syncs_per_step'],
+           'device_ops_per_step': prof['device_ops_per_step'],
+           'launches': launches, 'per_image': []}
+    for t, v in zip(trained['per_image'], valid['per_image']):
+        out['per_image'].append({k: t[k] for k in (
+            'PSNR', 'BPP', 'total_size_kb', 'latent_size_kb', 'stream',
+            'epoch')})
+        out['per_image'][-1]['valid_only_PSNR'] = v['PSNR']
+    log('  image: ' + json.dumps(out))
+    log(f'  image wrote: {files}')
+    for m, v in zip(trained['per_image'], valid['per_image']):
+        if not (all(math.isfinite(m[k]) for k in ('PSNR', 'BPP',
+                                                   'total_size_kb'))
+                and m['stream'] in ('histogram', 'prob_model')
+                and m['epoch'] == 300):
+            raise AssertionError(f'image metrics: {m}')
+        if not abs(v['PSNR'] - m['PSNR']) < 0.75:
+            raise AssertionError(f'--valid-only PSNR {v["PSNR"]} against '
+                                 f'the trained {m["PSNR"]}')
+    for f in ('metrics.json', 'predicted.png', 'model_best.ckpt',
+              'resume_state.ckpt'):
+        if f not in files:
+            raise AssertionError(f'the image app wrote no {f}')
+    if launches['scatter_add'] != 2 * 300:
+        raise AssertionError(f'B1 launches on the image path: {launches} '
+                             '(want one a step, 600)')
+    return launches
+
+
+def phase_pearl(dev):
+    """``apps/train_image.main`` with configs/pearl.yaml at its widths (16
+    LODs to 10725, 2^23 a LOD, 39,727,145 rows, F = 4, hidden 96, AdamW,
+    'wreplace' 2^18 pixels a step, noise every 50 steps, validation and a
+    resume state every epoch) on a procedural 2048^2 photo for
+    ``PEARL_FLAGS`` (2 epochs of 16 steps); the validation, resume-state
+    and size-report calls timed, the peak of allocated memory read.
+    Counts zeroed before and read after: B1 once a step.  Then the step
+    timed outside the app (samples/s) and profiled."""
+    import tempfile
+
+    import torch
+    from shacira_tpu_torch import config as cfg_mod
+    from shacira_tpu_torch.apps import train_image
+    from shacira_tpu_torch.trainers.image_trainer import ImageTrainer
+    from shacira_tpu_torch.utils import checkpoint
+    from tools.make_synthetic_data import write_images
+    owners = {'checkpoint': checkpoint, 'trainer': ImageTrainer}
+    seconds, originals = {}, {}
+    for owner, name in PEARL_TIMED:
+        def timed(*a, _fn=getattr(owners[owner], name), _name=name, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds.setdefault(_name, []).append(time.perf_counter() - t0)
+            return out
+        originals[owner, name] = getattr(owners[owner], name)
+        setattr(owners[owner], name, timed)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            images = os.path.join(tmp, 'images')
+            t0 = time.perf_counter()
+            write_images(images, n=1, h=PEARL_HW[0], w=PEARL_HW[1])
+            log(f'  image: 1 of {PEARL_HW[0]} x {PEARL_HW[1]} in '
+                f'{time.perf_counter() - t0:.1f} s')
+            runs = os.path.join(tmp, 'runs')
+            argv = _image_args(dev, 'pearl.yaml', images, runs, *PEARL_FLAGS)
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            t0 = time.perf_counter()
+            if train_image.main(argv) != 0:
+                raise AssertionError('the pearl app run failed')
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = _launch_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            app_seconds = {k: list(v) for k, v in seconds.items()}
+            with open(os.path.join(runs, 'run', 'metrics.json')) as f:
+                m = json.load(f)['per_image'][0]
+            args = cfg_mod.parse_args(
+                cfg_mod.build_image_parser(),
+                argv + ['--valid-every', '-1', '--save-every', '-1',
+                        '--log-every', '-1'])
+            step_s, steps, prof = _timed_image_block(
+                args, os.path.join(images, 'synth00.png'), 1,
+                'pearl, 2^18 sampled pixels')
+    finally:
+        for (owner, name), fn in originals.items():
+            setattr(owners[owner], name, fn)
+    out = {'train_s': train_s, 'peak_mem_gb': peak_gb,
+           'mean_step_ms': step_s * 1e3, 'timed_steps': steps,
+           'samples_per_s': PEARL_SAMPLES / step_s,
+           'device_busy_ms_per_step': prof['device_busy_ms_per_step'],
+           'device_idle_share': prof['device_idle_share'],
+           'stream_syncs_per_step': prof['stream_syncs_per_step'],
+           'device_ops_per_step': prof['device_ops_per_step'],
+           'seconds': app_seconds, 'launches': launches,
+           'metrics': {k: m[k] for k in ('PSNR', 'BPP', 'total_size_kb',
+                                         'latent_size_kb', 'stream',
+                                         'epoch', 'best_val_psnr')}}
+    log('  pearl: ' + json.dumps(out))
+    if not (math.isfinite(m['PSNR']) and m['total_size_kb'] > 0
+            and m['epoch'] == 2):
+        raise AssertionError(f'pearl metrics: {m}')
+    if len(app_seconds.get('validate', ())) != 2 or len(
+            app_seconds.get('save_trainer', ())) != 3:
+        raise AssertionError(f'pearl: validation and resume states every '
+                             f'epoch: {app_seconds}')
+    if launches['scatter_add'] != 2 * 16:
+        raise AssertionError(f'B1 launches on the pearl path: {launches} '
+                             '(want one a step, 32)')
+    return launches
+
+
+RANGES = ('step/draws', 'step/recalib', 'step/decode', 'trace/march',
+          'trace/group', 'trace/compact', 'field/encode',
+          'field/paged_encode', 'field/finish', 'field/head',
+          'trace/integrate', 'step/rate_loss', 'step/adam', 'step/best')
+
+
+def phase_profile(trainer, steps: int, label: str, step_ms: float,
+                  run=None):
     """Device time by step stage (the record_function ranges of the port)
     and by kernel over ``steps`` training steps under torch.profiler.  The
     backward runs on autograd's device thread, outside those ranges: it is
@@ -1273,7 +1663,9 @@ def phase_profile(trainer, steps: int, label: str, step_ms: float):
     step time measured without the profiler (``step_ms``).  Host syncs
     count the stream synchronisations (each host-to-device copy from
     pageable memory makes one) and host-to-device copies per step; device
-    ops count the kernels and copies the card ran per step."""
+    ops count the kernels and copies the card ran per step.  ``run()``
+    drives the ``steps`` steps (default: the multiview trainer's
+    ``train(num_iterations=steps)``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1281,7 +1673,10 @@ def phase_profile(trainer, steps: int, label: str, step_ms: float):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train(num_iterations=steps)
+        if run is None:
+            trainer.train(num_iterations=steps)
+        else:
+            run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels, ranges = {}, dict.fromkeys(RANGES, 0.0)
@@ -1384,6 +1779,17 @@ def main(argv=None) -> int:
     log('phase app:')
     launches['app'] = phase_app('cuda')
     torch.cuda.empty_cache()
+    log('phase image_kernels:')
+    rows.update(phase_image_kernels(dev))
+    torch.cuda.empty_cache()
+    log('phase image_parity:')
+    phase_image_parity(dev)
+    log('phase image:')
+    launches['image'] = phase_image('cuda')
+    torch.cuda.empty_cache()
+    log('phase pearl:')
+    launches['pearl'] = phase_pearl('cuda')
+    torch.cuda.empty_cache()
     # each kernel's launches come from the path it serves: B1 from the flat
     # lego run, B2 and B3 from the paged one (which also runs B1(b)), B2
     # with its occupancy row from the 'kernel' run; launches_by_path adds
@@ -1395,7 +1801,10 @@ def main(argv=None) -> int:
                ('segment_sum', 'segment_sum', 'lego'),
                ('paged_gather', 'paged_gather', 'paged'),
                ('paged_gather_occupancy', 'paged_gather_occupancy', 'kernel'),
-               ('paged_scatter', 'paged_scatter', 'paged'))
+               ('paged_scatter', 'paged_scatter', 'paged'),
+               ('scatter_add_image', 'scatter_add', 'image'),
+               ('scatter_add_image_shuffled', 'scatter_add', 'image'),
+               ('scatter_add_pearl', 'scatter_add', 'pearl'))
     counts = ('updates', 'atomics', 'distinct_per_tile',
               'occupancy_row_mismatches')
     kernels = []
@@ -1419,6 +1828,9 @@ def main(argv=None) -> int:
         for wrapper in ('segment_sum', 'paged_gather', 'paged_scatter'):
             if launches[path][wrapper] <= 0:
                 missing.append(f'{wrapper} ({path} path)')
+    for path in ('image', 'pearl'):
+        if launches[path]['scatter_add'] <= 0:
+            missing.append(f'scatter_add ({path} path)')
     if missing:
         raise AssertionError(f'kernels not launched on the main path: '
                              f'{missing}')

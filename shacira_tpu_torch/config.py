@@ -1,14 +1,17 @@
 """Configuration: argparse groups + YAML, CLI > YAML > defaults.
 
-Port of the NeRF part of ``shacira_tpu/config.py``.  Argument groups double
-as YAML sections; a YAML file given with ``--config`` sets parser defaults
-(explicit CLI flags win) with one level of ``parent:`` inheritance, and an
-unknown key raises.  The flag surface is the JAX package's, so
+Port of ``shacira_tpu/config.py`` for the image and NeRF apps.  Argument
+groups double as YAML sections; a YAML file given with ``--config`` sets
+parser defaults (explicit CLI flags win) with one level of ``parent:``
+inheritance, and an unknown key raises.  The flag surface is the JAX
+package's, so ``configs/kodak.yaml``, ``configs/pearl.yaml``,
 ``configs/nerf_base.yaml`` and ``configs/nerf_lego.yaml`` load as they are.
-Options whose code path is not ported yet (other grid types and decoders,
-the voxel march, TensorBoard renders) raise ``NotImplementedError`` naming
-their ROADMAP item; ``--rng-impl`` selects a JAX generator and is
+Options whose code path is not ported yet (other grid types, the voxel
+march, the NeRF app's TensorBoard renders) raise ``NotImplementedError``
+naming their ROADMAP item; ``--rng-impl`` selects a JAX generator and is
 accepted without effect (the port draws from one ``torch.Generator``).
+``--ldecode-type`` other than 'single' raises too: the JAX apps parse it
+but never pass it on, so they always build a single decoder.
 """
 from __future__ import annotations
 
@@ -25,11 +28,11 @@ def _bool(v) -> bool:
     return str(v).lower() in ('1', 'true', 'yes', 'on')
 
 
-def build_nerf_parser() -> argparse.ArgumentParser:
-    """Argument surface of the NeRF app (the JAX package's image parser
-    plus its NeRF groups, with NeRF defaults)."""
-    parser = argparse.ArgumentParser(description='SHACIRA NeRF training '
-                                     '(PyTorch/CUDA)')
+def build_image_parser(description: str = 'SHACIRA image INR training '
+                       '(PyTorch/CUDA)') -> argparse.ArgumentParser:
+    """Argument surface of the image app (the JAX package's image parser,
+    ``--device`` in place of its ``--platform``)."""
+    parser = argparse.ArgumentParser(description=description)
     parser.add_argument('--config', type=str, help='Path to YAML config')
     parser.add_argument('--device', type=str, default=None,
                         help="'cuda' (default) or 'cpu'")
@@ -119,8 +122,7 @@ def build_nerf_parser() -> argparse.ArgumentParser:
     g.add_argument('--weight-decay', type=float, default=0.0)
     g.add_argument('--weight-decay-decoder', type=float, default=0.0)
     g.add_argument('--rgb-loss', type=float, default=1.0)
-    # the NeRF path trains with AMP on: a bf16 MLP head
-    g.add_argument('--disable-amp', type=_bool, default=False)
+    g.add_argument('--disable-amp', type=_bool, default=True)
     g.add_argument('--disable-scaler', type=_bool, default=True)
 
     g = parser.add_argument_group('trainer')
@@ -135,6 +137,16 @@ def build_nerf_parser() -> argparse.ArgumentParser:
     g.add_argument('--seed', type=int, default=0)
     g.add_argument('--resample', type=_bool, default=False)
     g.add_argument('--resample-every', type=int, default=1)
+
+    return parser
+
+
+def build_nerf_parser() -> argparse.ArgumentParser:
+    """Argument surface of the NeRF app (the image parser plus the NeRF
+    groups, with NeRF defaults)."""
+    parser = build_image_parser('SHACIRA NeRF training (PyTorch/CUDA)')
+    # the NeRF path trains with AMP on: a bf16 MLP head
+    parser.set_defaults(disable_amp=False)
 
     g = parser.add_argument_group('tracer')
     g.add_argument('--raymarch-type', type=str, default='ray',
@@ -239,7 +251,11 @@ def build_grid_config(args, resolution_dim: int = 3):
     if args.tree_type != 'geometric':
         _not_ported(f'tree_type={args.tree_type!r}', 'Queue A item 12')
     if args.ldecode_type != 'single':
-        _not_ported(f'ldecode_type={args.ldecode_type!r}', 'Queue A item 10')
+        raise NotImplementedError(
+            f'ldecode_type={args.ldecode_type!r}: the JAX package\'s apps '
+            'parse --ldecode-type but never pass it to with_ldec, so they '
+            'always build a single decoder; build the multi and hierarchical '
+            'decoders with LatentGridConfig.with_ldec(..., ldecode_type=...)')
     cfg = LatentGridConfig.from_geometric(
         feature_dim=args.feature_dim, num_lods=args.num_lods,
         min_grid_res=args.min_grid_res, max_grid_res=args.max_grid_res,
@@ -260,6 +276,37 @@ def build_grid_config(args, resolution_dim: int = 3):
             clamp_weights=args.clamp_weights, ldec_std=args.ldec_std,
             use_sga=args.use_sga, diff_sampling=args.diff_sampling))
     return cfg
+
+
+def build_image_model_config(args):
+    from shacira_tpu_torch.models.nefs.image import NeuralImageConfig
+    return NeuralImageConfig(
+        grid=build_grid_config(args, resolution_dim=2),
+        hidden_dim=args.hidden_dim, num_layers=args.num_layers,
+        activation=args.activation_type,
+        final_activation=args.final_activation,
+        pos_embedder=args.pos_embedder, pos_multires=args.pos_multires,
+        position_input=args.position_input)
+
+
+def build_image_trainer_config(args):
+    from shacira_tpu_torch.trainers.image_trainer import ImageTrainerConfig
+    return ImageTrainerConfig(
+        epochs=args.epochs, rgb_loss_weight=args.rgb_loss,
+        optimizer_type=args.optimizer_type, lr=args.lr, grid_lr=args.grid_lr,
+        ldec_lr=args.ldec_lr, scale_grid_lr=args.scale_grid_lr,
+        weight_decay=args.weight_decay,
+        weight_decay_decoder=args.weight_decay_decoder,
+        ldec_lr_warmup=args.ldec_lr_warmup,
+        use_sga=args.use_sga and args.ldecode_enabled,
+        decay_period=args.decay_period, temperature=args.temperature,
+        norm=args.norm, norm_every=args.norm_every,
+        entropy_reg=args.entropy_reg, entropy_reg_end=args.entropy_reg_end,
+        entropy_reg_sched=args.entropy_reg_sched, noise_freq=args.noise_freq,
+        resample=args.resample, resample_every=args.resample_every,
+        chunk_size=args.chunk_size, log_every=args.log_every,
+        valid_every=args.valid_every, save_every=args.save_every,
+        render_tb_every=args.render_tb_every)
 
 
 def build_nerf_model_config(args):

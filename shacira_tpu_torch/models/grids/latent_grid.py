@@ -8,8 +8,10 @@ block-local LODs are interpolated as raw latents on segment-grouped rows
 (:func:`paged_zbar`, kernels B2/B3) and decoded after interpolation
 (:func:`paged_finish`), which is exact for an affine decoder.  The size
 accounting (:func:`grid_size_bits`) and the latent codestream
-(:func:`encode_grid_stream`) run on the host through ``ops/coding.py``;
-the multi and hierarchical decoders wait for ROADMAP Queue A item 10.
+(:func:`encode_grid_stream`) run on the host through ``ops/coding.py``.
+The multi and hierarchical decoders decode the whole codebook
+(:func:`decode_codebook`) and interpolate it through ``hash_encode``; only
+the single affine decoder takes the fused latent-width encode.
 """
 from __future__ import annotations
 
@@ -25,9 +27,13 @@ from shacira_tpu_torch.ops.hashgrid import (
     PAGE_RES, HashGridSpec, geometric_resolutions, hash_encode,
     hash_encode_affine)
 from shacira_tpu_torch.models.latent_decoders import (
-    LatentDecoderConfig, latent_decoder_init, latent_decoder_apply,
-    latent_decoder_is_affine, latent_decoder_affine_parts,
-    latent_decoder_size_bits, tensor_bits)
+    HierarchicalLatentDecoderConfig, LatentDecoderConfig,
+    MultiLatentDecoderConfig, hierarchical_latent_decoder_apply,
+    hierarchical_latent_decoder_init, hierarchical_latent_decoder_size_bits,
+    latent_decoder_affine_parts, latent_decoder_apply, latent_decoder_init,
+    latent_decoder_is_affine, latent_decoder_size_bits,
+    multi_latent_decoder_apply, multi_latent_decoder_init,
+    multi_latent_decoder_size_bits, tensor_bits)
 from shacira_tpu_torch.models.prob_models import (
     BitEstimatorConfig, bit_estimator_apply, bit_estimator_init,
     entropy_bits)
@@ -45,7 +51,9 @@ class LatentGridConfig:
     codebook_bitwidth: int = 8
     init_grid: str = 'normal'             # 'normal' | 'uniform'
     ldec: Optional[LatentDecoderConfig] = None
-    ldecode_type: str = 'single'
+    ldecode_type: str = 'single'          # 'single' | 'multi' | 'hierarchical'
+    num_decoders: int = 2                 # for 'multi'
+    alpha_std: float = 1.0                # for 'multi'
     num_prob_layers: int = 4
     noise_freq: int = 1
     entropy_enabled: bool = False
@@ -53,10 +61,8 @@ class LatentGridConfig:
     page_res: int = PAGE_RES              # paged layout: pages per axis
 
     def __post_init__(self):
-        if self.ldecode_type != 'single':
-            raise NotImplementedError(
-                f'ldecode_type={self.ldecode_type!r}: multi/hierarchical '
-                'decoders are ROADMAP Queue A item 10')
+        if self.ldecode_type not in ('single', 'multi', 'hierarchical'):
+            raise ValueError(f'ldecode_type={self.ldecode_type!r}')
         if self.multiscale_type not in ('sum', 'cat'):
             raise NotImplementedError(self.multiscale_type)
 
@@ -91,10 +97,32 @@ class LatentGridConfig:
         res = geometric_resolutions(min_grid_res, max_grid_res, num_lods)
         return cls(feature_dim=feature_dim, resolutions=res, **kw)
 
-    def with_ldec(self, ldec_kwargs: dict) -> 'LatentGridConfig':
+    def with_ldec(self, ldec_kwargs: dict, ldecode_type: str = 'single',
+                  **type_kwargs) -> 'LatentGridConfig':
         ldec = LatentDecoderConfig(latent_dim=self.effective_latent_dim,
                                    feature_dim=self.feature_dim, **ldec_kwargs)
-        return replace(self, ldec=ldec)
+        return replace(self, ldec=ldec, ldecode_type=ldecode_type,
+                       **type_kwargs)
+
+    @property
+    def multi_cfg(self) -> MultiLatentDecoderConfig:
+        d = self.ldec
+        return MultiLatentDecoderConfig(
+            latent_dim=d.latent_dim, feature_dim=d.feature_dim,
+            num_entries=self.spec.total_size, num_decoders=self.num_decoders,
+            norm=d.norm, ldecode_matrix=d.ldecode_matrix, use_shift=d.use_shift,
+            num_layers_dec=d.num_layers_dec, hidden_dim_dec=d.hidden_dim_dec,
+            activation=d.activation, final_activation=d.final_activation,
+            clamp_weights=d.clamp_weights, ldec_std=d.ldec_std,
+            alpha_std=self.alpha_std, use_sga=d.use_sga,
+            diff_sampling=d.diff_sampling)
+
+    @property
+    def hier_cfg(self) -> HierarchicalLatentDecoderConfig:
+        spec = self.spec
+        offsets = tuple(spec.lod_first_idx) + (spec.total_size,)
+        return HierarchicalLatentDecoderConfig(
+            num_decoders=spec.num_lods, offsets=offsets, decoder=self.ldec)
 
 
 def latent_grid_init(generator: torch.Generator, cfg: LatentGridConfig,
@@ -112,7 +140,15 @@ def latent_grid_init(generator: torch.Generator, cfg: LatentGridConfig,
         raise ValueError(cfg.init_grid)
     params = {'codebook': cb + cfg.feature_bias}
     if cfg.ldec is not None:
-        params['latent_dec'] = latent_decoder_init(generator, cfg.ldec, device)
+        if cfg.ldecode_type == 'multi':
+            params['latent_dec'] = multi_latent_decoder_init(
+                generator, cfg.multi_cfg, device)
+        elif cfg.ldecode_type == 'hierarchical':
+            params['latent_dec'] = hierarchical_latent_decoder_init(
+                generator, cfg.hier_cfg, device)
+        else:
+            params['latent_dec'] = latent_decoder_init(generator, cfg.ldec,
+                                                       device)
         if cfg.entropy_enabled:
             params['prob_model'] = bit_estimator_init(generator, cfg.prob_cfg,
                                                       device)
@@ -121,7 +157,8 @@ def latent_grid_init(generator: torch.Generator, cfg: LatentGridConfig,
 
 def supports_affine_fusion(cfg: LatentGridConfig) -> bool:
     """Single affine latent decoder: the fused latent-width backward."""
-    return cfg.ldec is not None and latent_decoder_is_affine(cfg.ldec)
+    return (cfg.ldec is not None and cfg.ldecode_type == 'single'
+            and latent_decoder_is_affine(cfg.ldec))
 
 
 def affine_parts(params: dict, cfg: LatentGridConfig, *, use_sga: bool = False,
@@ -136,9 +173,20 @@ def affine_parts(params: dict, cfg: LatentGridConfig, *, use_sga: bool = False,
 def decode_codebook(params: dict, cfg: LatentGridConfig, *,
                     use_sga: bool = False, temperature: float = 1.0,
                     sga_u: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Quantize + decode the full latent table -> feature table [T, F]."""
+    """Quantize + decode the full latent table -> feature table [T, F].
+    The multi decoder mixes softly while SGA is on and hard (straight
+    through) otherwise; the hierarchical one decodes LOD by LOD."""
     if cfg.ldec is None:
         return params['codebook']
+    if cfg.ldecode_type == 'multi':
+        return multi_latent_decoder_apply(
+            params['latent_dec'], cfg.multi_cfg, params['codebook'],
+            use_sga=use_sga, temperature=temperature,
+            straight_through=not use_sga, sga_u=sga_u)
+    if cfg.ldecode_type == 'hierarchical':
+        return hierarchical_latent_decoder_apply(
+            params['latent_dec'], cfg.hier_cfg, params['codebook'],
+            use_sga=use_sga, temperature=temperature, sga_u=sga_u)
     return latent_decoder_apply(params['latent_dec'], cfg.ldec,
                                 params['codebook'], use_sga=use_sga,
                                 temperature=temperature, sga_u=sga_u)
@@ -308,11 +356,16 @@ def _model_probs(params: dict, cfg: LatentGridConfig, uniq: np.ndarray,
         return _host(cdf(uniq + 0.5) - cdf(uniq - 0.5))
 
 
-def _check_single_decoder(cfg: LatentGridConfig):
-    if cfg.ldecode_type != 'single':
-        raise NotImplementedError(
-            f'size of ldecode_type={cfg.ldecode_type!r}: multi/hierarchical '
-            'decoders are ROADMAP Queue A item 10')
+def decoder_size_bits(params: dict, cfg: LatentGridConfig,
+                      use_codec: bool = False) -> float:
+    """Bits of the latent decoder: its parameters as stored, and for the
+    multi decoder its coded per-entry assignments."""
+    if cfg.ldecode_type == 'multi':
+        return multi_latent_decoder_size_bits(params['latent_dec'],
+                                              use_codec=use_codec)
+    if cfg.ldecode_type == 'hierarchical':
+        return hierarchical_latent_decoder_size_bits(params['latent_dec'])
+    return latent_decoder_size_bits(params['latent_dec'])
 
 
 def grid_size_bits(params: dict, cfg: LatentGridConfig, *,
@@ -330,8 +383,7 @@ def grid_size_bits(params: dict, cfg: LatentGridConfig, *,
     if cfg.ldec is None:
         # an uncompressed hash grid: the raw table
         return 0, tensor_bits(params['codebook'])
-    _check_single_decoder(cfg)
-    ldec_bits = latent_decoder_size_bits(params['latent_dec'])
+    ldec_bits = decoder_size_bits(params, cfg, use_codec)
     cb = _host(params['codebook'])
     codebook_bits = 0.0
     for c in range(cb.shape[1]):
@@ -360,7 +412,6 @@ def encode_grid_stream(params: dict, cfg: LatentGridConfig, *,
     channel: symbols ``round(cb[:, c])`` over their dense alphabet, coded
     with the histogram CDF (or the BitEstimator's with
     ``use_prob_model``), with what :func:`decode_grid_stream` needs."""
-    _check_single_decoder(cfg)
     cb = _host(params['codebook'])
     channels = []
     for c in range(cb.shape[1]):

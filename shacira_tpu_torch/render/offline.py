@@ -2,9 +2,9 @@
 files.
 
 Port of ``CameraConfig``, ``lookat_rays``, ``render_rays``, ``turntable``
-and ``save_gif`` of ``shacira_tpu/render/offline.py``, plus ``save_png``
-(``shacira_tpu/apps/train_image.py``; here until the image app is ported,
-ROADMAP Queue A item 10).  The JAX package splits a PRNG key per ray batch;
+and ``save_gif`` of ``shacira_tpu/render/offline.py``; ``save_png`` lives in
+the image app (``apps/train_image.py``, as in the JAX package) and is
+re-exported here.  The JAX package splits a PRNG key per ray batch;
 here every batch draws its march jitter from one ``torch.Generator``,
 seeded 0 per frame unless the caller passes one.  Overlay layers wait for
 item 14.
@@ -17,6 +17,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from shacira_tpu_torch.apps.train_image import save_png  # noqa: F401
 from shacira_tpu_torch.core.rays import make_rays
 from shacira_tpu_torch.device import resolve_device
 
@@ -104,12 +105,6 @@ def turntable(trace_fn: Callable, cfg: CameraConfig, num_angles: int = 16,
 
 def _uint8(img01: np.ndarray) -> np.ndarray:
     return np.clip(img01 * 255.0, 0, 255).astype(np.uint8)
-
-
-def save_png(path: str, img01: np.ndarray) -> None:
-    """An [H, W, 3] image in [0, 1] as an 8-bit PNG."""
-    from PIL import Image
-    Image.fromarray(_uint8(img01)).save(path)
 
 
 def save_gif(frames, path: str, fps: int = 10):

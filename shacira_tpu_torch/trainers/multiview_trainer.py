@@ -9,8 +9,9 @@ cadence, validation epochs), so the ray batches come from the same
 Semantics kept from the JAX package:
   * loss = rgb_loss_weight * L1(rgb) + entropy lambda * bits per latent;
   * Adam over five label groups with per-step learning rates: the grid lr
-    divided (or multiplied) by the decoder's scale norm, the prob model at
-    a fixed 1e-4, the decoder lr warmed up linearly;
+    divided (or multiplied) by the single decoder's scale norm (other
+    decoders keep ``grid_lr``), the prob model at a fixed 1e-4, the
+    decoder lr warmed up linearly;
   * an occupancy prune every ``prune_every`` iterations;
   * float PSNR evaluation with rounded (eval-mode) latents;
   * on the paged layout with a segmented march (``use_paged``), the
@@ -357,7 +358,8 @@ class MultiviewTrainer:
         # the whole forward and backward before Adam is launched
         lr_grid = torch.full((), cfg.grid_lr, dtype=torch.float32,
                              device=self.device)
-        if self.ldecode_enabled and cfg.scale_grid_lr != 'none':
+        if (self.ldecode_enabled and cfg.scale_grid_lr != 'none'
+                and gcfg.ldecode_type == 'single'):
             norm = scale_norm(p['grid']['latent_dec']).detach()
             lr_grid = (lr_grid * norm if cfg.scale_grid_lr == 'mul'
                        else lr_grid / norm)

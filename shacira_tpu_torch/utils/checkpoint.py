@@ -3,18 +3,25 @@
 Port of ``shacira_tpu/utils/checkpoint.py``, in its file format: a state
 dict whose tensors are stored as numpy arrays, pickled atomically.  A model
 file is ``{'format': 'full', 'params', 'configs'}`` (the port's config
-dataclasses) or ``{'format': 'state_dict', 'params'}``.  A ``'state_dict'``
-model file written by the JAX package therefore loads here
-(``utils/convert.params_from_jax``); its ``'full'`` files and resume
-states pickle JAX-package objects and are refused, since unpickling them
-would import that package.
+dataclasses) or ``{'format': 'state_dict', 'params'}``.
 
-A trainer's resume state holds what the JAX package's holds: iteration,
-params, Adam state, rate-loss noise, the random generator's state
-(``torch.Generator.get_state``), the best validation params and PSNR, and
-the occupancy state.  Like the JAX package it keeps neither the ray-batch
-stream nor the adapted budgets: a resumed run draws new ray batches and
-starts again from the base budgets.
+Files written by the JAX package load here without importing it: every
+object of a JAX-package class (its ``AdamState``, its config dataclasses)
+is rebuilt as a :class:`JaxObject` that keeps the class's name and the
+pickled fields.  So a JAX model file's params load (its configs come back
+as ``JaxObject`` objects) and a JAX resume state restores into a port trainer;
+a JAX random key cannot seed a ``torch.Generator``, so such a restore keeps
+the trainer's generator.
+
+A trainer's resume state holds what the JAX package's holds, under its
+field names: epoch or iteration, params, Adam state, rate-loss noise, the
+random generator's state (``torch.Generator.get_state``), the best
+validation params and PSNR; for the image trainer also the train-loss best
+(``best_params``, ``best_loss``, ``best_psnr``) and ``_resampled_epoch``;
+for the multiview trainer the occupancy state.  Like the JAX package it
+keeps neither the ray-batch stream nor the adapted budgets: a resumed
+multiview run draws new ray batches and starts again from the base
+budgets.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import pickle
 import tempfile
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from shacira_tpu_torch import optim
@@ -52,61 +60,107 @@ def save_state(path: str, state: Dict[str, Any]) -> None:
         raise
 
 
+class JaxObject:
+    """An object of a JAX-package class, rebuilt without importing it:
+    ``jax_class`` is the class's dotted name, ``args`` what its
+    constructor got (a named tuple's fields), ``fields`` its pickled
+    state (a dataclass's attributes)."""
+    jax_class = ''
+
+    def __new__(cls, *args):
+        obj = super().__new__(cls)
+        obj.args = args
+        obj.fields = {}
+        return obj
+
+    def __setstate__(self, state):
+        self.fields = dict(state) if isinstance(state, dict) else {
+            'state': state}
+
+    def __repr__(self):
+        return f'JaxObject({self.jax_class}, {self.args or self.fields})'
+
+
 class _Unpickler(pickle.Unpickler):
-    """Refuses the JAX package's classes instead of importing them."""
+    """Rebuilds the JAX package's classes as :class:`JaxObject` instead of
+    importing them."""
 
     def find_class(self, module, name):
         if module == _JAX_PACKAGE or module.startswith(_JAX_PACKAGE + '.'):
-            raise pickle.UnpicklingError(
-                f'this file pickles {module}.{name} of the JAX package: '
-                "the port loads JAX model files saved with model_format="
-                "'state_dict' (params only), not 'full' files or resume "
-                'states')
+            return type(name, (JaxObject,),
+                        {'jax_class': f'{module}.{name}'})
         return super().find_class(module, name)
 
 
 def load_state(path: str) -> Dict[str, Any]:
-    """A state dict written by :func:`save_state` (or a JAX ``'state_dict'``
-    model file), its arrays as numpy."""
+    """A state dict written by :func:`save_state` or by the JAX package,
+    its arrays as numpy."""
     with open(path, 'rb') as f:
         return _Unpickler(f).load()
 
 
+def _adam_state(opt, dev) -> dict:
+    """The port's Adam state from a saved one: the port's dict or the JAX
+    package's ``AdamState(mu, nu, count)``."""
+    if isinstance(opt, JaxObject):
+        mu, nu, count = opt.args
+    else:
+        mu, nu, count = opt['mu'], opt['nu'], opt['count']
+    return {'mu': params_from_jax(mu, dev), 'nu': params_from_jax(nu, dev),
+            'count': int(count)}
+
+
 def save_trainer(trainer, path: str) -> None:
-    """Save a multiview trainer's resumable state."""
+    """Save an image or multiview trainer's resumable state."""
+    image = hasattr(trainer, 'best_params')
     state = {
-        'epoch': None,
-        'iteration': trainer.iteration,
+        'epoch': trainer.epoch if image else None,
+        'iteration': None if image else trainer.iteration,
         'params': trainer.params,
         'opt_state': trainer.opt_state,
         'noise': trainer.noise,
         'rng': trainer.generator.get_state(),
-        'occ_state': trainer.occ_state,
     }
+    if image:
+        state['best_params'] = trainer.best_params
+        state['best_loss'] = trainer.best_loss
+        state['best_psnr'] = trainer.best_psnr
+        state['_resampled_epoch'] = trainer._resampled_epoch
     if trainer.val_best_params is not None:
         state['val_best_params'] = trainer.val_best_params
         state['best_val_psnr'] = trainer.best_val_psnr
+    if hasattr(trainer, 'occ_state'):
+        state['occ_state'] = trainer.occ_state
     save_state(path, state)
 
 
 def restore_trainer(trainer, path: str) -> Dict[str, Any]:
-    """Restore a trainer's state in place (the grids it derives from the
-    occupancy rebuilt); returns the raw state dict."""
+    """Restore a trainer's state in place (a multiview trainer's grids
+    derived from the occupancy rebuilt); returns the raw state dict."""
     state = load_state(path)
     dev = trainer.device
-    opt = state['opt_state']
     trainer.set_params(params_from_jax(state['params'], dev),
-                       {'mu': params_from_jax(opt['mu'], dev),
-                        'nu': params_from_jax(opt['nu'], dev),
-                        'count': int(opt['count'])})
+                       _adam_state(state['opt_state'], dev))
     trainer.noise = torch.as_tensor(state['noise'], device=dev)
-    trainer.generator.set_state(torch.as_tensor(state['rng']))
-    trainer.iteration = int(state['iteration'])
+    rng = np.asarray(state['rng'])
+    if rng.dtype == np.uint8:            # a torch.Generator state
+        trainer.generator.set_state(torch.as_tensor(rng))
+    if state.get('epoch') is not None:
+        trainer.epoch = int(state['epoch'])
+    if state.get('iteration') is not None:
+        trainer.iteration = int(state['iteration'])
+    if 'best_params' in state and hasattr(trainer, 'best_params'):
+        trainer.best_params = params_from_jax(state['best_params'], dev)
+        trainer.best_loss = torch.as_tensor(state['best_loss'], device=dev)
+        trainer.best_psnr = torch.as_tensor(state['best_psnr'], device=dev)
     if 'val_best_params' in state:
         # host tensors, as validate() keeps them
         trainer.val_best_params = params_from_jax(state['val_best_params'])
         trainer.best_val_psnr = state['best_val_psnr']
-    trainer.set_occupancy(params_from_jax(state['occ_state'], dev))
+    if '_resampled_epoch' in state:
+        trainer._resampled_epoch = int(state['_resampled_epoch'])
+    if 'occ_state' in state and hasattr(trainer, 'set_occupancy'):
+        trainer.set_occupancy(params_from_jax(state['occ_state'], dev))
     return state
 
 
@@ -124,8 +178,8 @@ def save_model(path: str, params, model_format: str = 'full',
 
 
 def load_model(path: str, device='cpu') -> Dict[str, Any]:
-    """A model saved by :func:`save_model` (here or, as ``'state_dict'``,
-    by the JAX package), its params as tensors on ``device``."""
+    """A model saved by :func:`save_model` here or by the JAX package, its
+    params as tensors on ``device``."""
     state = load_state(path)
     state['params'] = params_from_jax(state['params'], device)
     return state

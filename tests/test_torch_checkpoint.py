@@ -7,7 +7,8 @@ derived from it, iteration and the best validation params; one more step
 from each, on the same batch and draws, gives identical params.  A model
 file written by the JAX package with ``model_format='state_dict'`` loads
 and renders the view the JAX field renders, within the tolerance of
-``tests/test_torch_tracer.py`` (rtol 1e-5, atol 1e-5).
+``tests/test_torch_tracer.py`` (rtol 1e-5, atol 1e-5); its ``'full'``
+files and resume states load too, without the JAX package.
 """
 import copy
 import pickle
@@ -218,12 +219,24 @@ def test_jax_state_dict_model_loads_and_renders_the_same_view(tmp_path):
 
 
 def test_jax_full_files_and_resume_states_are_refused(tmp_path):
+    """JAX ``'full'`` model files and resume states pickle JAX-package
+    objects; they are no longer refused: they load without importing the
+    JAX package, its objects rebuilt as ``JaxObject``."""
     jtr, ttr, _ = _jax_trainer()
     full = str(tmp_path / 'full.ckpt')
     jckpt.save_model(full, jtr.params, configs={'model': jtr.model_cfg})
-    with pytest.raises(pickle.UnpicklingError, match="'state_dict'"):
-        tckpt.load_model(full)
+    state = tckpt.load_model(full)
+    assert state['configs']['model'].jax_class \
+        == 'shacira_tpu.models.nefs.nerf.NeuralRadianceFieldConfig'
+    _equal_trees(state['params'], jax.tree.map(np.asarray, jtr.params))
     resume = str(tmp_path / 'resume.ckpt')
+    jtr.iteration = 3
     jckpt.save_trainer(jtr, resume)
-    with pytest.raises(pickle.UnpicklingError, match='JAX package'):
-        tckpt.restore_trainer(ttr, resume)
+    tckpt.restore_trainer(ttr, resume)
+    assert ttr.iteration == 3
+    _equal_trees(ttr.params, jax.tree.map(np.asarray, jtr.params))
+    _equal_trees(ttr.opt_state['nu'], jax.tree.map(np.asarray,
+                                                   jtr.opt_state.nu))
+    assert torch.equal(ttr.occ_state['occ'],
+                       torch.as_tensor(np.asarray(jtr.occ_state['occ'])))
+    assert np.isfinite(ttr.train(num_iterations=1)['iterations'])

@@ -168,5 +168,21 @@ def test_decode_once_and_pipeline(trainers):
 
 
 def test_unported_decoders_raise():
-    with pytest.raises(NotImplementedError, match='item 10'):
-        tlg.LatentGridConfig.from_geometric(**GRID, ldecode_type='multi')
+    """The multi and hierarchical decoders are ported now (their sizes are
+    held to JAX's in tests/test_torch_image_decoders.py); what raises is an
+    unknown decoder type, and the config reader's ``--ldecode-type`` other
+    than 'single', which the JAX apps parse but never pass on."""
+    from shacira_tpu_torch import config as tconfig
+    for ltype in ('multi', 'hierarchical'):
+        cfg = tlg.LatentGridConfig.from_geometric(**GRID).with_ldec(
+            LDEC, ldecode_type=ltype)
+        params = tlg.latent_grid_init(torch.Generator().manual_seed(0), cfg,
+                                      'cpu')
+        assert tlg.grid_size_bits(params, cfg)[0] > 0
+    with pytest.raises(ValueError):
+        tlg.LatentGridConfig.from_geometric(**GRID, ldecode_type='bogus')
+    args = tconfig.parse_args(tconfig.build_nerf_parser(),
+                              ['--ldecode-enabled', 'true',
+                               '--ldecode-type', 'multi'])
+    with pytest.raises(NotImplementedError, match='never pass it'):
+        tconfig.build_nerf_model_config(args)
