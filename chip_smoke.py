@@ -6,8 +6,9 @@
 Phases, each of which must pass (exit code 1 otherwise):
 
 1. build    -- compile every CUDA source of the port with nvcc (sm_90a),
-               and each again as its atomic-counting build, one nvcc per
-               library, all at once, and print the build time;
+               and the scatter sources again as their atomic-counting
+               builds, one nvcc per library, all at once, and print the
+               build time;
 2. kernels  -- call each kernel's wrapper on the card at the shapes of the
                lego training step and hold it against its plain PyTorch
                version (max error relative to the largest value <= 1e-5);
@@ -89,7 +90,29 @@ Phases, each of which must pass (exit code 1 otherwise):
                procedural 2048 x 2048 photo, 2 epochs of 16 'wreplace'
                steps of 2^18 pixels, validation and a resume state every
                epoch; those calls and the size report timed, peak memory;
-               B1 once a step; the step timed (samples/s) and profiled.
+               B1 once a step; the step timed (samples/s) and profiled;
+15. voxel_kernels -- on a generated RTMV scene (40 views of 256 x 256,
+               read at configs/nerf_V8.yaml's mip 2): kernel V1 (the DDA
+               walk of the 'voxel' march) on 4096 of its rays against its
+               plain version (``valid`` equal, depths within 1 ulp), on the
+               occupancy seeded from the scene's point cloud and on a grid
+               with every cell occupied; B1(a) as the flat V8 backward (20
+               LODs, width 2, 671,088,640 updates into 1,966,521 rows),
+               B1(b) as the paged voxel step's per-ray sums, B2 and B3 at
+               ld 2 on 262,144 voxel slots; each timed, with its bound;
+16. voxel_parity -- one small voxel step (latent_dim 2) on the card
+               against the same step on the CPU, flat dense and paged;
+17. v8      -- ``apps/train_nerf.main`` with configs/nerf_V8.yaml unchanged
+               on that scene, 104 steps across the prune at 100 from the
+               point cloud's occupancy, then ``--valid-only`` (its PSNR
+               equal to the trained run's to 1e-4 dB); B1(a) and V1 every
+               step; the step timed and profiled outside the app;
+18. voxel   -- bench_nerf.measure_voxel's setting (``VOXEL_FLAGS``: V8's
+               grid paged, adaptive budgets, term_tau 11.5) through the
+               config reader on the lego-like Blender scene, 210 steps
+               across two prunes, budgets and probed live crossings logged
+               after each, profiled after the second, one view evaluated;
+               B1(b), B2, B3 and V1 every step.
 
 The second-to-last lines are the card's name and power limit and the
 kernels JSON; the last line is the result JSON.  Exits non-zero without
@@ -293,8 +316,12 @@ def phase_kernels(dev):
     rows = {}
     use_a = 'hash-grid backward, shacira_tpu/ops/hashgrid.py:471'
     inputs = scatter_inputs(dev)
-    check_scatter('scatter_add one LOD', *inputs.pop('scatter_add_one_lod'),
-                  scatter.scatter_add, scatter.scatter_add_plain, reps=20)
+    rows['scatter_add_one_lod'] = check_scatter(
+        'scatter_add one LOD', *inputs.pop('scatter_add_one_lod'),
+        scatter.scatter_add, scatter.scatter_add_plain, reps=20)
+    rows['scatter_add_one_lod'].update(
+        use='hash-grid backward of the finest lego LOD alone, '
+            'shacira_tpu/ops/hashgrid.py:471')
     for name, label, use in (
             ('scatter_add', 'scatter_add 24 LODs fused, random points',
              use_a),
@@ -349,6 +376,15 @@ PAGED_FLAGS = ['--hash-layout', 'paged', '--page-res', '16',
 SUSTAINED_FLAGS = ['--term-tau', '11.5', '--lean-stage1', 'true',
                    '--super-factor', '4', '--adaptive-budget', 'true',
                    '--min-budget', '8192']
+# bench_nerf.measure_voxel's setting (the JAX bench's stage voxel) on
+# configs/nerf_V8.yaml: V8's grid on the paged layout, adaptive budgets,
+# transmittance culling, the bf16 head
+VOXEL_FLAGS = ['--hash-layout', 'paged', '--page-res', '16',
+               '--max-samples', '262144', '--eval-seg-budget', '16384',
+               '--max-intersections', '64', '--group-segs-per-block', '8',
+               '--term-tau', '11.5', '--adaptive-budget', 'true',
+               '--min-budget', '8192', '--chunk-size', '50',
+               '--disable-amp', 'false']
 SCENE_DIST = (0.8, 4.4)   # ray bounds of the analytic scene below
 OCC_RES = 128             # the lego config's occupancy grid (blas_level 7)
 
@@ -540,25 +576,36 @@ def paged_merge_counts(coords_s, slot_valid, block_cell, g, static):
     return out
 
 
-def paged_inputs(dev):
-    """B2's and B3's inputs at the paged lego step's shapes: 24,576
-    spatially tight segments of 16 samples grouped 8 to a block (458,752
-    slots): coords_s, slot_valid, block_cell, a table z [T, 1], an output
-    gradient g [458,752, 24, 1], the static encode description, and a
+def paged_inputs(dev, args=None, voxel=False):
+    """B2's and B3's inputs at the paged step's shapes of ``args`` (default:
+    the paged lego config): ``eval_seg_budget`` spatially tight segments
+    (lego: 24,576 of ``segment_size`` 16 samples, 458,752 slots; with
+    ``voxel`` 16,384 crossings of ``num_steps`` 16 samples inside one
+    cell of the 128^3 grid, 262,144 slots) grouped 8 to a block:
+    coords_s, slot_valid, block_cell, a table z [T, ld], an output
+    gradient g [slots, L, ld], the static encode description, and (lego) a
     packed 128^3 occupancy grid (cells occupied with probability 0.3) with
     the static description of B2 with its occupancy row."""
     import torch
     from shacira_tpu_torch import config as cfg_mod
     from shacira_tpu_torch.ops import paged_hash as ph
-    args = lego_args('cuda', paged=True)
+    if args is None:
+        args = lego_args('cuda', paged=True)
     spec = cfg_mod.build_grid_config(args).spec
     static = ph.default_static(spec)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    k, g, spb = (args.eval_seg_budget, args.segment_size,
-                 args.group_segs_per_block)
-    # half a segment in [0,1] coords at the scene's ray bounds
-    half = (SCENE_DIST[1] - SCENE_DIST[0]) * (g / 2 + 1) / args.num_steps / 2
+    ld = args.latent_dim
+    if voxel:
+        # a crossing's samples span at most one cell's diagonal
+        k, g = args.eval_seg_budget, args.num_steps
+        half = math.sqrt(3.0) / (2 * OCC_RES)
+    else:
+        # half a segment in [0,1] coords at the scene's ray bounds
+        k, g = args.eval_seg_budget, args.segment_size
+        half = ((SCENE_DIST[1] - SCENE_DIST[0]) * (g / 2 + 1)
+                / args.num_steps / 2)
+    spb = args.group_segs_per_block
     centers = torch.rand((k, 3), generator=gen, device=dev) * 0.96 + 0.02
     d = torch.randn((k, 3), generator=gen, device=dev)
     d = d / d.norm(dim=-1, keepdim=True)
@@ -572,14 +619,17 @@ def paged_inputs(dev):
     coords_s = torch.where(sv[:, None], (pts * 2 - 1).reshape(k, g * 3)[
         torch.clamp(s2s, max=k - 1)], 0.0).reshape(-1, 3).contiguous()
     slot_valid = sv[:, None].expand(-1, g).reshape(-1).contiguous()
-    z = torch.randn((spec.total_size, 1), generator=gen, device=dev)
-    gout = torch.randn((coords_s.shape[0], len(static.all_lods), 1),
+    z = torch.randn((spec.total_size, ld), generator=gen, device=dev)
+    gout = torch.randn((coords_s.shape[0], len(static.all_lods), ld),
                        generator=gen, device=dev)
-    occ = torch.rand((OCC_RES,) * 3, generator=gen, device=dev) < 0.3
-    return {'coords_s': coords_s, 'slot_valid': slot_valid,
-            'block_cell': grp['block_cell'], 'z': z, 'g': gout,
-            'static': static, 'occ': ph.pack_occupancy(occ),
-            'static_occ': ph.default_static(spec, OCC_RES)}
+    out = {'coords_s': coords_s, 'slot_valid': slot_valid,
+           'block_cell': grp['block_cell'], 'z': z, 'g': gout,
+           'static': static}
+    if not voxel:
+        occ = torch.rand((OCC_RES,) * 3, generator=gen, device=dev) < 0.3
+        out.update(occ=ph.pack_occupancy(occ),
+                   static_occ=ph.default_static(spec, OCC_RES))
+    return out
 
 
 def prune_inputs(dev, group_res):
@@ -611,9 +661,14 @@ def phase_paged_kernels(dev):
     rows['paged_scatter'] = check_paged_scatter(
         'paged_scatter (B3) train', *slots, inp['g'], static, reps=20)
     del inp, slots
-    rows['paged_gather']['prune'] = check_paged_gather(
+    rows['paged_gather_prune'] = check_paged_gather(
         'paged_gather (B2) prune', *prune_inputs(dev, static.group_res), z,
         static, reps=5, plain_reps=1)
+    rows['paged_gather_prune'].update(
+        source='shacira_tpu_torch/csrc/paged_hash.cu',
+        replaces='shacira_tpu/ops/paged_hash.py:720',
+        use='paged prune density, 2,097,152 cells in grouped order, '
+            'shacira_tpu/models/nefs/nerf.py:279')
     rows['paged_gather'].update(
         source='shacira_tpu_torch/csrc/paged_hash.cu',
         replaces='shacira_tpu/ops/paged_hash.py:720',
@@ -667,6 +722,58 @@ def sphere_scene(num_views: int, res: int):
                          dist_max=SCENE_DIST[1])
 
 
+def write_rtmv_scene(outdir, views=64, res=256, seed=0, workers=1):
+    """An RTMV-format scene: ``NNNNN.exr`` (R, G, B, A and the ray-distance
+    depth Z, uncompressed) and ``NNNNN.json`` cameras of the analytic scene
+    of ``tools/make_synthetic_data.py``, seen from a sphere of radius 3.2,
+    the views rendered by ``workers`` processes.  The files equal
+    ``make_synthetic_data.write_rtmv_scene``'s byte for byte; that one
+    writes through the JAX package's EXR codec, this one through the
+    port's."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from shacira_tpu_torch.ops.exr import write_exr
+    from tools.make_synthetic_data import _render_view
+    os.makedirs(outdir, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    camera_angle_x = 0.6911112070083618
+    fx = 0.5 * res / np.tan(0.5 * camera_angle_x)
+    poses = []
+    for v in range(views):
+        theta = 2 * np.pi * (v / views) * 7.13   # decorrelate from split order
+        elev = 0.35 + 0.45 * rng.rand()
+        r = 3.2
+        pos = np.asarray([r * np.cos(theta) * np.cos(elev),
+                          r * np.sin(elev),
+                          r * np.sin(theta) * np.cos(elev)], np.float32)
+        fwd = -pos / np.linalg.norm(pos)
+        right = np.cross(fwd, [0, 1, 0])
+        right /= np.linalg.norm(right)
+        up = np.cross(right, fwd)
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, up, -fwd, pos
+        poses.append(c2w)
+    args = ([c2w for c2w in poses], [res] * views, [res] * views,
+            [fx] * views)
+    if workers > 1:
+        with ProcessPoolExecutor(workers, mp_context=multiprocessing
+                                 .get_context('spawn')) as pool:
+            views_out = list(pool.map(_render_view, *args))
+    else:
+        views_out = list(map(_render_view, *args))
+    for v, (c2w, (rgba, depth)) in enumerate(zip(poses, views_out)):
+        write_exr(os.path.join(outdir, f'{v:05d}.exr'),
+                  {'R': rgba[..., 0], 'G': rgba[..., 1], 'B': rgba[..., 2],
+                   'A': rgba[..., 3], 'Z': depth})
+        meta = {'camera_data': {
+            'cam2world': c2w.T.tolist(),      # the loader transposes
+            'intrinsics': {'fx': fx, 'fy': fx, 'cx': res / 2.0,
+                           'cy': res / 2.0}}}
+        with open(os.path.join(outdir, f'{v:05d}.json'), 'w') as f:
+            json.dump(meta, f)
+
+
 PARITY_MARCHES = {
     # flat layout: the dense march, and the segmented 'exact' one
     'flat': dict(num_steps=128, max_samples=16384),
@@ -682,6 +789,16 @@ PARITY_MARCHES['paged exact'] = dict(PARITY_MARCHES['paged'],
                                      fine_mode='exact')
 PARITY_MARCHES['paged sustained'] = dict(
     PARITY_MARCHES['paged'], lean_stage1=True, super_factor=4, term_tau=11.5)
+# the voxel march at latent_dim 2, flat (dense integration) and paged (the
+# fused crossing compaction, transmittance culling), on a sphere of
+# occupied cells with a density cache
+VOXEL_PARITY_MARCHES = {
+    'voxel flat': dict(raymarch_type='voxel', num_steps=4,
+                       max_intersections=16),
+    'voxel paged': dict(raymarch_type='voxel', num_steps=8,
+                        max_intersections=24, max_samples=4096,
+                        eval_seg_budget=256, group_segs_per_block=4,
+                        term_tau=11.5)}
 
 
 def _parity_cfgs(march: str):
@@ -690,8 +807,10 @@ def _parity_cfgs(march: str):
     from shacira_tpu_torch.models.grids.latent_grid import LatentGridConfig
     from shacira_tpu_torch.models.nefs.nerf import NeuralRadianceFieldConfig
     from shacira_tpu_torch.tracers.rf_tracer import RFTracerConfig
-    paged = march.startswith('paged')
-    tcfg = RFTracerConfig(**PARITY_MARCHES[march])
+    paged = 'paged' in march
+    voxel = march in VOXEL_PARITY_MARCHES
+    tcfg = RFTracerConfig(**(VOXEL_PARITY_MARCHES if voxel
+                             else PARITY_MARCHES)[march])
     if paged:       # 3 direct LODs (17..40) and 2 paged ones (62, 97)
         grid = dict(num_lods=5, min_grid_res=16, max_grid_res=96,
                     codebook_bitwidth=17, hash_layout='paged', page_res=16)
@@ -699,31 +818,41 @@ def _parity_cfgs(march: str):
         grid = dict(num_lods=6, min_grid_res=4, max_grid_res=64,
                     codebook_bitwidth=12)
     grid = LatentGridConfig.from_geometric(
-        feature_dim=4, latent_dim=1, multiscale_type='cat', feature_std=0.02,
-        entropy_enabled=True, num_prob_layers=1, **grid
+        feature_dim=4, latent_dim=2 if voxel else 1, multiscale_type='cat',
+        feature_std=0.02, entropy_enabled=True, num_prob_layers=1, **grid
     ).with_ldec(dict(ldec_std=0.1, use_shift=True, use_sga=True,
                      diff_sampling=True))
+    # a paged voxel crossing must fit the page cover: one cell of 128^3
+    blas = (7 if voxel else 5) if paged else 4
     mcfg = NeuralRadianceFieldConfig(grid=grid, hidden_dim=32,
                                      view_embedder='positional',
-                                     blas_level=5 if paged else 4, amp=False)
+                                     blas_level=blas, amp=False)
     return mcfg, tcfg
 
 
 def phase_parity(dev, march: str):
     """One small step on the card against the same step on the CPU, with
-    the march ``march`` (a key of ``PARITY_MARCHES``)."""
+    the march ``march`` (a key of ``PARITY_MARCHES`` or
+    ``VOXEL_PARITY_MARCHES``; the voxel ones on a sphere of occupied cells
+    with a density cache, so that transmittance culling drops some)."""
     import torch
     from shacira_tpu_torch import optim
     from shacira_tpu_torch.trainers.multiview_trainer import (
         MultiviewTrainer, MultiviewTrainerConfig, StepDraws)
     data = sphere_scene(4, 24)
     mcfg, tcfg = _parity_cfgs(march)
-    paged = march.startswith('paged')
+    paged = 'paged' in march
     cfg = MultiviewTrainerConfig(epochs=10, prune_every=-1)
     cpu = MultiviewTrainer(cfg, mcfg, tcfg, data, num_rays=256, device='cpu')
     gpu = MultiviewTrainer(cfg, mcfg, tcfg, data, num_rays=256, device=dev)
     if gpu.use_paged != paged:
         raise AssertionError('the parity step took the wrong trace path')
+    if march in VOXEL_PARITY_MARCHES:
+        occ_np, dens = _sphere_occupancy(mcfg.blas_level)
+        for tr in (cpu, gpu):
+            tr.set_occupancy({
+                'occ': torch.as_tensor(occ_np, device=tr.device),
+                'density': torch.as_tensor(dens, device=tr.device)})
     gpu.set_params(optim.tree_map(lambda t: t.detach().clone().to(dev),
                                   cpu.params))
     draws = cpu.draw_step(use_sga=True)
@@ -762,20 +891,24 @@ AFTER_PRUNE = 4           # training steps past the prune
 
 
 def _launch_counts():
+    from shacira_tpu_torch.accel import occupancy as occ
     from shacira_tpu_torch.ops import paged_hash as ph
     from shacira_tpu_torch.ops import scatter
     return {'scatter_add': scatter.scatter_add.launches,
             'segment_sum': scatter.segment_sum.launches,
             'paged_gather': ph.paged_gather.launches,
             'paged_gather_occupancy': ph.paged_gather.occupancy_launches,
-            'paged_scatter': ph.paged_scatter.launches}
+            'paged_scatter': ph.paged_scatter.launches,
+            'voxel_crossings': occ.voxel_crossings.launches}
 
 
 def _reset_launches():
+    from shacira_tpu_torch.accel import occupancy as occ
     from shacira_tpu_torch.ops import paged_hash as ph
     from shacira_tpu_torch.ops import scatter
     scatter.reset_launches()
     ph.reset_launches()
+    occ.reset_launches()
 
 
 def _delta(after, before):
@@ -1646,6 +1779,451 @@ def phase_pearl(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The voxel march: kernel V1 (the DDA walk), RTMV data, configs/nerf_V8.yaml
+# ---------------------------------------------------------------------------
+
+V8_SCENE = dict(views=40, res=256)   # the generated RTMV scene, read at mip 2
+# 4 epochs of 26 views: 104 steps across the prune at 100
+V8_FLAGS = ['--epochs', '4', '--max-views', '26']
+VOXEL_STEPS = 210                    # two prunes, 3 profiled steps, 7 more
+DDA_STEP_OPS = 33    # f32 operations of one DDA step: 3 FMAs (6), the cell
+                     # (9), the exits (12), min / max (6)
+
+
+def v8_argv(dev, scene='', log_dir='', *extra):
+    """The app's argv for configs/nerf_V8.yaml on the RTMV scene ``scene``
+    with log directory ``log_dir`` and the flags ``extra``."""
+    return ['--config', os.path.join(ROOT, 'configs', 'nerf_V8.yaml'),
+            '--device', str(dev), '--dataset-path', scene, '--log-dir',
+            log_dir, '--exp-name', 'v8', *extra]
+
+
+def _nerf_args(argv):
+    from shacira_tpu_torch import config as cfg_mod
+    return cfg_mod.parse_args(cfg_mod.build_nerf_parser(), argv)
+
+
+def v8_rays(data, dev, n=4096, seed=0):
+    """``n`` random pixels of one training view as rays, as a step draws
+    them."""
+    import torch
+    from shacira_tpu_torch.core.rays import make_rays
+    rng = np.random.RandomState(seed)
+    v = rng.randint(data.num_views)
+    idx = rng.randint(0, data.rgb.shape[1], size=n)
+    return make_rays(torch.as_tensor(data.rays_o[v, idx], device=dev),
+                     torch.as_tensor(data.rays_d[v, idx], device=dev),
+                     data.dist_min, data.dist_max)
+
+
+def _ulps(got, want) -> float:
+    """Largest ``|got - want|`` in units in the last place of ``want``."""
+    import torch
+    step = torch.nextafter(want, torch.full_like(want, math.inf)) - want
+    return float(((got - want).abs() / step).max())
+
+
+def check_dda(name, state, ocfg, rays, max_isect, reps=20):
+    """Kernel V1 against its plain version: ``valid`` equal, depths to 1
+    ulp; timed with CUDA events (the plain loop too), with its bound: the
+    steps the walks take (each reads one occupancy byte and does
+    ``DDA_STEP_OPS`` f32 operations), the rays read and the slots written
+    once."""
+    import torch
+    from shacira_tpu_torch.accel import occupancy as occ
+    args = (state, ocfg, rays, max_isect)
+    got = occ._launch_dda(*args)
+    want = occ.voxel_crossings_plain(*args)
+    torch.cuda.synchronize()
+    mismatches = int((got['valid'] != want['valid']).sum())
+    ulps = max(_ulps(got[k], want[k]) for k in ('entries', 'exits'))
+    err = max(float((got[k] - want[k]).abs().max())
+              for k in ('entries', 'exits'))
+    _, _, occ_l, ahead = occ.dda_steps(state, ocfg, rays)
+    before = torch.cumsum(occ_l.long(), dim=1) - occ_l.long()
+    walked = int((ahead & (before < max_isect)).sum())
+    crossings = int(want['valid'].sum())
+    del got, want, occ_l, ahead, before
+    n = rays.origins.shape[0]
+    t_bytes = (walked + n * 8 * 4 + n * max_isect * 9) / HBM_BYTES_PER_S * 1e3
+    t_ops = walked * DDA_STEP_OPS / F32_FLOPS * 1e3
+    b_ms, b_by = (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops,
+                                                              'operations')
+    ms = time_ms(lambda: occ._launch_dda(*args), reps)
+    plain_ms = time_ms(lambda: occ.voxel_crossings_plain(*args), 1)
+    log(f'  {name}: rays={n} res={ocfg.res} I={max_isect} steps walked '
+        f'{walked} ({walked / n:.1f} a ray), crossings {crossings}, valid '
+        f'mismatches {mismatches}, depth max_abs_err={err:.3e} max ulps '
+        f'{ulps:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+        f'{b_ms:.6f} ms ({b_by})')
+    if mismatches or not ulps <= 1.0:
+        raise AssertionError(f'{name}: V1 disagrees with its plain version '
+                             f'({mismatches} valid mismatches, {ulps} ulps)')
+    return {'max_abs_err': err, 'max_rel_err': None, 'ms': ms,
+            'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+            'library_ms': None, 'valid_mismatches': mismatches,
+            'max_ulps': ulps, 'steps_walked': walked,
+            'crossings': crossings}
+
+
+def phase_voxel_kernels(dev, data):
+    """The kernels at the voxel path's shapes: V1 on 4096 rays of the v8
+    scene against its plain version, on the occupancy seeded from the
+    scene's point cloud and on a grid with every cell occupied (every ray
+    overflows its 64 slots); B1(a) as the flat V8 backward (4096 x 64 x 16
+    samples of the dense voxel march in ray order, masked samples' zero
+    gradients, 20 LODs x 8 corners, width 2, into 1,966,521 rows); B1(b) as
+    the paged voxel step's per-ray sums (262,144 x 5 into 4096); B2 and B3
+    at ``ld`` 2 on 16,384 crossings of 16 samples (262,144 slots)."""
+    import torch
+    from shacira_tpu_torch import config as cfg_mod
+    from shacira_tpu_torch.accel import occupancy as occ
+    from shacira_tpu_torch.ops import hashgrid, scatter
+    args = _nerf_args(v8_argv(dev))
+    ocfg = occ.OccupancyGridConfig(args.blas_level)
+    I, S = args.max_intersections, args.num_steps
+    rays = v8_rays(data, dev)
+    seeded = occ.occupancy_from_points(ocfg, data.pointcloud, dev)
+    log(f'  seeded occupancy: {float(seeded["occ"].float().mean()):.5f} '
+        f'of {ocfg.num_cells} cells from {data.pointcloud.shape[0]} points')
+    v1 = dict(source='shacira_tpu_torch/csrc/voxel_dda.cu',
+              replaces='none: shacira_tpu/accel/occupancy.py:229 (lax.scan, '
+                       'no Pallas counterpart)')
+    rows = {'voxel_dda': dict(check_dda(
+        'voxel_dda (V1), seeded occupancy', seeded, ocfg, rays, I), **v1,
+        use='voxel march DDA (flat and paged step, probe), '
+            'shacira_tpu/accel/occupancy.py:176')}
+    rows['voxel_dda_all_occupied'] = dict(check_dda(
+        'voxel_dda (V1), every cell occupied', occ.occupancy_init(ocfg, dev),
+        ocfg, rays, I), **v1, use='voxel march DDA before the first prune '
+                                  '(every cell occupied, slots overflow)')
+    b1 = dict(source='shacira_tpu_torch/csrc/scatter.cu',
+              replaces='shacira_tpu/ops/pallas_scatter.py:29')
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    m = occ.raymarch_voxel(seeded, ocfg, rays, S, gen, I)
+    spec = cfg_mod.build_grid_config(args).spec
+    gidx, _ = hashgrid._all_corners(m['samples'].reshape(-1, 3), spec)
+    vals = torch.randn(gidx.shape + (args.latent_dim,), generator=gen,
+                       device=dev)
+    vals.mul_(m['mask'].reshape(1, -1, 1, 1))     # masked samples: zero
+    log(f'  V8 flat step: {int(m["mask"].sum())} of {m["mask"].numel()} '
+        f'samples live')
+    del m
+    rows['scatter_add_v8'] = dict(check_scatter(
+        'scatter_add V8 flat backward, 20 LODs, width 2',
+        gidx.reshape(-1), vals.reshape(-1, args.latent_dim),
+        spec.total_size, scatter.scatter_add, scatter.scatter_add_plain,
+        reps=5), **b1, use='flat V8 hash backward (dense voxel '
+                           'integration), shacira_tpu/ops/hashgrid.py:471')
+    del gidx, vals
+    torch.cuda.empty_cache()
+    vargs = _nerf_args(v8_argv(dev, '', '', *VOXEL_FLAGS))
+    k, rays_n = vargs.max_samples, vargs.num_rays_sampled_per_img
+    valid_rows = int(0.8 * k)
+    ids = torch.sort(torch.randint(0, rays_n, (valid_rows,), generator=gen,
+                                   device=dev)).values
+    ids = torch.cat([ids, torch.zeros((k - valid_rows,), dtype=ids.dtype,
+                                      device=dev)]).to(torch.int32)
+    payload = torch.randn((k, 5), generator=gen, device=dev)
+    payload[valid_rows:] = 0.0
+    rows['segment_sum_voxel'] = dict(check_scatter(
+        'segment_sum, paged voxel step', ids, payload, rays_n,
+        lambda i, v, t: scatter.segment_sum(i, v, t),
+        scatter.scatter_add_plain, reps=50), **b1,
+        use='per-ray sums of the paged voxel step, '
+            'shacira_tpu/tracers/rf_tracer.py:325')
+    inp = paged_inputs(dev, vargs, voxel=True)
+    slots = (inp['coords_s'], inp['slot_valid'], inp['block_cell'])
+    b23 = dict(source='shacira_tpu_torch/csrc/paged_hash.cu')
+    rows['paged_gather_voxel'] = dict(check_paged_gather(
+        'paged_gather (B2) voxel, ld 2', *slots, inp['z'], inp['static'],
+        reps=20), **b23, replaces='shacira_tpu/ops/paged_hash.py:720',
+        use='paged voxel encode forward, ld 2, '
+            'shacira_tpu/ops/paged_hash.py:1163')
+    rows['paged_scatter_voxel'] = dict(check_paged_scatter(
+        'paged_scatter (B3) voxel, ld 2', *slots, inp['g'], inp['static'],
+        reps=20), **b23, replaces='shacira_tpu/ops/paged_hash.py:786',
+        use='paged voxel encode backward, ld 2, '
+            'shacira_tpu/ops/paged_hash.py:1236')
+    return rows
+
+
+def _sphere_occupancy(level, radius=0.55, density=40.0):
+    """(occ, density) numpy grids of a sphere of occupied cells."""
+    res = 2 ** level
+    g = np.linspace(-1, 1, res, endpoint=False) + 1.0 / res
+    xx, yy, zz = np.meshgrid(g, g, g, indexing='ij')
+    inside = (xx ** 2 + yy ** 2 + zz ** 2) < radius ** 2
+    return inside, inside.astype(np.float32) * density
+
+
+def phase_v8(dev, scene, tmp, data):
+    """``apps/train_nerf.main`` with configs/nerf_V8.yaml unchanged (flat
+    layout, 'voxel' march, dense integration of 4096 x 64 x 16 samples a
+    step) on the generated RTMV scene (40 views of 256^2 read at mip 2;
+    ``V8_FLAGS``: 4 epochs of 26 views, 104 steps across the prune at 100),
+    then ``--resume true --valid-only``, whose PSNR must equal the trained
+    run's to 1e-4 dB.  LPIPS on random weights.  The occupancy at the
+    start of training must be the point cloud's seed.  Counts zeroed before
+    the training run and read after it: B1(a) and V1 must have launched.
+    Then the step timed and profiled outside the app, before the prune."""
+    import logging
+
+    import torch
+    from shacira_tpu_torch.accel import occupancy as occ
+    from shacira_tpu_torch.apps import train_nerf
+    from shacira_tpu_torch.apps.train_nerf import build_trainer
+    from shacira_tpu_torch.ops import lpips as lpips_mod
+    from shacira_tpu_torch.trainers.multiview_trainer import MultiviewTrainer
+    argv = v8_argv(dev, scene, os.path.join(tmp, 'runs')) + V8_FLAGS
+    args = _nerf_args(argv)
+    n_steps = args.epochs * data.num_views
+    want_prunes = list(range(args.prune_every, n_steps + 1,
+                             args.prune_every))
+    ocfg = occ.OccupancyGridConfig(args.blas_level)
+    seed = occ.occupancy_from_points(ocfg, data.pointcloud, dev)['occ']
+
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    logger = logging.getLogger('shacira_tpu_torch')
+    logger.addHandler(handler)
+    env = os.environ.get(lpips_mod.ENV_VAR)
+    weights = os.path.join(tmp, 'lpips_random.npz')
+    np.savez(weights, **lpips_mod.random_weights(0))
+    os.environ[lpips_mod.ENV_VAR] = weights
+    # the trainer's train() and prune() wrapped: the occupancy training
+    # starts from and its time; the occupancy after each prune
+    starts, prunes = [], []
+    fn_train, fn_prune = MultiviewTrainer.train, MultiviewTrainer.prune
+
+    def train(self, *a, **k):
+        starts.append({'seeded': bool(torch.equal(self.occ_state['occ'],
+                                                  seed)),
+                       'iteration': self.iteration})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn_train(self, *a, **k)
+        torch.cuda.synchronize()
+        starts[-1]['seconds'] = time.perf_counter() - t0
+        return out
+
+    def prune(self, *a, **k):
+        fn_prune(self, *a, **k)
+        prunes.append({
+            'iteration': self.iteration,
+            'occupancy': float(self.occ_state['occ'].float().mean()),
+            'density_max': float(self.occ_state['density'].max())})
+
+    MultiviewTrainer.train, MultiviewTrainer.prune = train, prune
+    exp = os.path.join(tmp, 'runs', 'v8')
+    try:
+        metrics, logs, walls = {}, {}, {}
+        for name, extra in (('train', []),
+                            ('valid-only', ['--resume', 'true',
+                                            '--valid-only'])):
+            del lines[:]
+            if name == 'train':
+                _reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if train_nerf.main(argv + extra) != 0:
+                raise AssertionError(f'v8 app run {name} failed')
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            if name == 'train':
+                launches = _launch_counts()
+                app_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            with open(os.path.join(exp, 'metrics.json')) as f:
+                metrics[name] = json.load(f)
+            logs[name] = list(lines)
+    finally:
+        MultiviewTrainer.train, MultiviewTrainer.prune = fn_train, fn_prune
+        logger.removeHandler(handler)
+        if env is None:
+            os.environ.pop(lpips_mod.ENV_VAR, None)
+        else:
+            os.environ[lpips_mod.ENV_VAR] = env
+    m = metrics['train']
+    steps = [ln for ln in logs['train'] if ln.startswith('iteration ')]
+    result = {'wall_s': walls, 'train_seconds': starts[0]['seconds'],
+              'mean_step_ms_in_app': starts[0]['seconds'] / n_steps * 1e3,
+              'seeded_from_point_cloud': starts[0]['seeded'],
+              'prunes': prunes, 'app_peak_mem_gb': app_peak_gb,
+              'metrics': m, 'valid_only_psnr': metrics['valid-only']['psnr'],
+              'launches': launches, 'training_log': steps}
+    log('  v8: ' + json.dumps(result))
+    for name, mm in metrics.items():
+        if not all(math.isfinite(mm[k]) for k in ('psnr', 'ssim', 'lpips',
+                                                   'total_size_kb')):
+            raise AssertionError(f'v8 {name}: non-finite metrics {mm}')
+    if not starts[0]['seeded']:
+        raise AssertionError('v8: training did not start from the point '
+                             'cloud\'s occupancy')
+    if not want_prunes or [p['iteration'] for p in prunes] != want_prunes \
+            or not any(ln.startswith(f'iteration {n_steps} ')
+                       for ln in steps):
+        raise AssertionError(f'v8: not {n_steps} steps across the prunes at '
+                             f'{want_prunes}: {prunes}, {steps}')
+    if ('valid-only: loaded model_best.ckpt' not in logs['valid-only']
+            or any(ln.startswith('iteration ') for ln in logs['valid-only'])):
+        raise AssertionError('v8 --valid-only did not reload without '
+                             'training')
+    diff = abs(metrics['valid-only']['psnr'] - m['psnr'])
+    log(f'  v8 --valid-only PSNR - trained PSNR: {diff:.3e} dB')
+    if not diff <= 1e-4:
+        raise AssertionError('v8 --valid-only did not reproduce the PSNR')
+    for f in ('metrics.json', 'model_best.ckpt', 'resume_state.ckpt',
+              'val_view0.png', 'turntable.gif'):
+        if not os.path.exists(os.path.join(exp, f)):
+            raise AssertionError(f'the v8 app wrote no {f}')
+    if launches['scatter_add'] < n_steps or \
+            launches['voxel_crossings'] < n_steps:
+        raise AssertionError(f'v8: B1(a) or V1 not launched every step: '
+                             f'{launches}')
+    # the step outside the app: timed, then profiled, before the prune
+    fresh = build_trainer(args, data)
+    fresh.train(num_iterations=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fresh.train(num_iterations=10)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 10 * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f'  v8 step: {step_ms:.3f} ms ('
+        f'{args.num_rays_sampled_per_img / step_ms * 1e3:.1f} rays/s), peak '
+        f'{peak:.3f} GB')
+    phase_profile(fresh, 3, 'v8, before the first prune', step_ms)
+    return launches
+
+
+def phase_voxel(dev, tmp):
+    """``bench_nerf.measure_voxel``'s setting (``VOXEL_FLAGS`` on
+    configs/nerf_V8.yaml: V8's grid on the paged layout, 262,144-sample and
+    16,384-crossing budgets, term_tau 11.5, adaptive budgets from 8192,
+    chunks of 50) through the port's config reader and ``build_trainer``,
+    on ``bench_nerf.lego_like_scene``'s scene
+    (``write_nerf_scene(views=40, val_views=1, res=128)``): two prunes,
+    the budgets, the occupancy and the probed live crossings per ray logged
+    after each; 3 steps profiled after the second; one view evaluated.
+    Counts zeroed before and read after training: B1(b), B2, B3 and V1 every
+    step, B2 and V1 (the probe) in the prune step; the budgets on the
+    ladder at or below base."""
+    import torch
+    from shacira_tpu_torch.apps.train_nerf import build_trainer
+    from shacira_tpu_torch.datasets.nerf_synthetic import load_nerf_synthetic
+    from tools.make_synthetic_data import write_nerf_scene
+    scene = os.path.join(tmp, 'lego_like')
+    t0 = time.perf_counter()
+    write_nerf_scene(scene, views=40, val_views=1, res=128)
+    data = load_nerf_synthetic(scene, split='train')
+    log(f'  scene: 40 + 1 views of 128 x 128 in '
+        f'{time.perf_counter() - t0:.1f} s')
+    args = _nerf_args(v8_argv(dev, scene, tmp, *VOXEL_FLAGS))
+    trainer = build_trainer(args, data)
+    base = trainer.tracer_cfg
+    if not (trainer.use_paged and trainer.voxel and base.term_tau == 11.5
+            and base.max_samples == args.max_samples
+            and base.eval_seg_budget == args.eval_seg_budget
+            and trainer.cfg.adaptive_budget and trainer.model_cfg.amp):
+        raise AssertionError(f'the voxel trainer took the wrong path: {base}')
+    probes = []
+    fn_probe = trainer._live_cell_hits_per_ray
+
+    def probe(*a, **k):
+        probes.append(fn_probe(*a, **k))
+        return probes[-1]
+
+    trainer._live_cell_hits_per_ray = probe
+    entries, prunes = [], []
+
+    def timed(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(num_iterations=n, log_fn=lambda e: entries.append(e)
+                      if 'iteration' in e else None)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n
+
+    fields = ('max_samples', 'eval_seg_budget')
+
+    def after_prune():
+        act = trainer.active_tracer_cfg
+        rec = {'iteration': trainer.iteration,
+               'occupancy': entries[-1]['occupancy'],
+               'live_crossings_per_ray': probes[-1],
+               **{f: getattr(act, f) for f in fields}}
+        prunes.append(rec)
+        log('  after prune: ' + json.dumps(rec))
+        if not all(_on_ladder(getattr(act, f))
+                   and getattr(act, f) <= getattr(base, f) for f in fields):
+            raise AssertionError(f'budgets off the ladder or above base: '
+                                 f'{rec}')
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    first_s = timed(1)
+    block_s = timed(args.prune_every - 2)
+    before_prune = _launch_counts()
+    prune_s = timed(1)
+    in_prune_step = _delta(_launch_counts(), before_prune)
+    after_prune()
+    between_s = timed(args.prune_every)
+    after_prune()
+    trained = trainer.iteration
+    launches = _launch_counts()
+    prof = phase_profile(trainer, 3, 'voxel, after the second prune',
+                         between_s * 1e3)
+    n_after = VOXEL_STEPS - trainer.iteration
+    after_s = timed(n_after)
+    prof['unprofiled_step_ms'] = after_s * 1e3
+    prof['device_idle_share'] = 1.0 - prof['device_busy_ms_per_step'] / (
+        after_s * 1e3)
+    log(f'  voxel profile against steps {trainer.iteration - n_after + 1}-'
+        f'{trainer.iteration} ({after_s * 1e3:.3f} ms a step): device idle '
+        f'share {prof["device_idle_share"]:.4f}')
+    before_eval = _launch_counts()
+    metrics = trainer.evaluate(view_indices=[0])
+    torch.cuda.synchronize()
+    in_eval = _delta(_launch_counts(), before_eval)
+    result = {
+        'layout': 'paged', 'setting': 'measure_voxel',
+        'steps': trainer.iteration, 'first_step_ms': first_s * 1e3,
+        'mean_step_ms': block_s * 1e3,
+        'mean_step_ms_of_steps': [2, args.prune_every - 1],
+        'prune_step_ms': prune_s * 1e3,
+        'mean_step_ms_between_prunes': between_s * 1e3,
+        'mean_step_ms_adapted': after_s * 1e3,
+        'rays_per_s': args.num_rays_sampled_per_img / block_s,
+        'rays_per_s_adapted': args.num_rays_sampled_per_img / after_s,
+        'loss_first': entries[0]['loss'], 'loss_last': entries[-1]['loss'],
+        'psnr_first': entries[0]['psnr'], 'psnr_last': entries[-1]['psnr'],
+        'prunes': prunes, 'eval_psnr_view0': metrics['psnr'],
+        'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9,
+        'launches': launches, 'launches_in_prune_step': in_prune_step,
+        'launches_in_eval': in_eval}
+    log('  voxel: ' + json.dumps(result))
+    if not all(math.isfinite(e['loss']) for e in entries):
+        raise AssertionError('non-finite training loss')
+    if not math.isfinite(metrics['psnr']):
+        raise AssertionError('non-finite evaluation PSNR')
+    for wrapper in ('segment_sum', 'paged_gather', 'paged_scatter',
+                    'voxel_crossings'):
+        if launches[wrapper] < trained:
+            raise AssertionError(f'{wrapper} did not launch every step: '
+                                 f'{launches}')
+    # the step's B2 and the prune's; the step's V1 and the probe's
+    if in_prune_step['paged_gather'] != 2 or \
+            in_prune_step['voxel_crossings'] != 2:
+        raise AssertionError(f'the prune step: {in_prune_step}')
+    if in_eval['paged_gather'] < 1 or in_eval['voxel_crossings'] < 1:
+        raise AssertionError(f'eval did not go through B2 and V1: {in_eval}')
+    return launches
+
+
 RANGES = ('step/draws', 'step/recalib', 'step/decode', 'trace/march',
           'trace/group', 'trace/compact', 'field/encode',
           'field/paged_encode', 'field/finish', 'field/head',
@@ -1716,6 +2294,42 @@ def phase_profile(trainer, steps: int, label: str, step_ms: float,
         raise AssertionError(f'{syncs / steps} stream syncs per step: the '
                              'step waits for the card more than once')
     return out
+
+
+def voxel_phases(dev, rows) -> dict:
+    """Phases voxel_kernels, voxel_parity, v8 and voxel, in a temporary
+    directory holding the generated scenes; adds the kernel rows to
+    ``rows`` and returns the launches of the v8 and voxel paths."""
+    import tempfile
+
+    import torch
+    from shacira_tpu_torch.datasets.rtmv import load_rtmv
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = os.path.join(tmp, 'rtmv')
+        t0 = time.perf_counter()
+        write_rtmv_scene(scene, **V8_SCENE, workers=min(8, os.cpu_count()))
+        args = _nerf_args(v8_argv(dev, scene, tmp, *V8_FLAGS))
+        data = load_rtmv(scene, split='train', mip=args.mip,
+                         max_views=args.max_views)
+        log(f'  RTMV scene: {V8_SCENE["views"]} views of {V8_SCENE["res"]}^2 '
+            f'in {time.perf_counter() - t0:.1f} s; {data.num_views} train '
+            f'views of {data.h} x {data.w} at mip {args.mip}, '
+            f'{data.pointcloud.shape[0]} points, ray bounds '
+            f'[{data.dist_min:.3f}, {data.dist_max:.3f}]')
+        log('phase voxel_kernels:')
+        rows.update(phase_voxel_kernels(dev, data))
+        torch.cuda.empty_cache()
+        log('phase voxel_parity:')
+        for march in VOXEL_PARITY_MARCHES:
+            phase_parity(dev, march)
+        log('phase v8:')
+        launches['v8'] = phase_v8(dev, scene, tmp, data)
+        torch.cuda.empty_cache()
+        log('phase voxel:')
+        launches['voxel'] = phase_voxel(dev, tmp)
+        torch.cuda.empty_cache()
+    return launches
 
 
 def main(argv=None) -> int:
@@ -1790,23 +2404,34 @@ def main(argv=None) -> int:
     log('phase pearl:')
     launches['pearl'] = phase_pearl('cuda')
     torch.cuda.empty_cache()
+    launches.update(voxel_phases(dev, rows))
     # each kernel's launches come from the path it serves: B1 from the flat
     # lego run, B2 and B3 from the paged one (which also runs B1(b)), B2
-    # with its occupancy row from the 'kernel' run; launches_by_path adds
-    # the other runs, the sustained one among them
+    # with its occupancy row from the 'kernel' run, V1 and B1(a) at V8's
+    # width from the v8 run, V1 on a full grid, B1(b), B2 and B3 at ld 2
+    # from the voxel run; launches_by_path adds the other runs
     # (row name, wrapper count it reports, path); the ray-ordered row times
     # the same wrapper as scatter_add on the step's sample order
     path_of = (('scatter_add', 'scatter_add', 'lego'),
                ('scatter_add_ray_ordered', 'scatter_add', 'lego'),
+               ('scatter_add_one_lod', 'scatter_add', 'lego'),
                ('segment_sum', 'segment_sum', 'lego'),
                ('paged_gather', 'paged_gather', 'paged'),
+               ('paged_gather_prune', 'paged_gather', 'paged'),
                ('paged_gather_occupancy', 'paged_gather_occupancy', 'kernel'),
                ('paged_scatter', 'paged_scatter', 'paged'),
                ('scatter_add_image', 'scatter_add', 'image'),
                ('scatter_add_image_shuffled', 'scatter_add', 'image'),
-               ('scatter_add_pearl', 'scatter_add', 'pearl'))
+               ('scatter_add_pearl', 'scatter_add', 'pearl'),
+               ('voxel_dda', 'voxel_crossings', 'v8'),
+               ('voxel_dda_all_occupied', 'voxel_crossings', 'voxel'),
+               ('scatter_add_v8', 'scatter_add', 'v8'),
+               ('segment_sum_voxel', 'segment_sum', 'voxel'),
+               ('paged_gather_voxel', 'paged_gather', 'voxel'),
+               ('paged_scatter_voxel', 'paged_scatter', 'voxel'))
     counts = ('updates', 'atomics', 'distinct_per_tile',
-              'occupancy_row_mismatches')
+              'occupancy_row_mismatches', 'valid_mismatches', 'max_ulps',
+              'steps_walked', 'crossings')
     kernels = []
     for name, wrapper, path in path_of:
         row = rows[name]
@@ -1831,6 +2456,11 @@ def main(argv=None) -> int:
     for path in ('image', 'pearl'):
         if launches[path]['scatter_add'] <= 0:
             missing.append(f'scatter_add ({path} path)')
+    for path, wrappers in (('v8', ('scatter_add', 'voxel_crossings')),
+                           ('voxel', ('segment_sum', 'paged_gather',
+                                      'paged_scatter', 'voxel_crossings'))):
+        missing += [f'{w} ({path} path)' for w in wrappers
+                    if launches[path][w] <= 0]
     if missing:
         raise AssertionError(f'kernels not launched on the main path: '
                              f'{missing}')

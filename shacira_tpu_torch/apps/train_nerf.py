@@ -1,7 +1,8 @@
 """NeRF training app (PyTorch/CUDA).
 
 Port of ``shacira_tpu/apps/train_nerf.py`` for the latent grid on
-Blender-format data: loads a scene, trains with pruning and periodic
+Blender-format or RTMV data (``--multiview-dataset-format rtmv``): loads a
+scene, trains with pruning and periodic
 validation and resume-state checkpoints (``--save-every``), optionally
 under the profiler (``--profile``), saves ``resume_state.ckpt`` and
 ``model_best.ckpt``, evaluates PSNR, SSIM (and LPIPS with
@@ -27,6 +28,7 @@ import torch
 
 from shacira_tpu_torch import config as cfg_mod
 from shacira_tpu_torch.datasets.nerf_synthetic import load_nerf_synthetic
+from shacira_tpu_torch.datasets.rtmv import load_rtmv
 from shacira_tpu_torch.models import pipeline
 from shacira_tpu_torch.models.nefs import nerf as nerf_mod
 from shacira_tpu_torch.render import offline
@@ -60,12 +62,13 @@ def main(argv=None):
     args = cfg_mod.parse_args(cfg_mod.build_nerf_parser(), argv)
     if not args.dataset_path:
         raise SystemExit('--dataset-path is required')
-    if args.multiview_dataset_format != 'standard':
-        raise NotImplementedError('RTMV data: ROADMAP Queue A item 11')
     log_dir = os.path.join(args.log_dir, args.exp_name)
     os.makedirs(log_dir, exist_ok=True)
 
     def load(split):
+        if args.multiview_dataset_format == 'rtmv':
+            return load_rtmv(args.dataset_path, split=split, mip=args.mip,
+                             bg_color=args.bg_color, max_views=args.max_views)
         return load_nerf_synthetic(args.dataset_path, split=split,
                                    bg_color=args.bg_color, mip=args.mip,
                                    max_views=args.max_views)

@@ -6,8 +6,8 @@ parser defaults (explicit CLI flags win) with one level of ``parent:``
 inheritance, and an unknown key raises.  The flag surface is the JAX
 package's, so ``configs/kodak.yaml``, ``configs/pearl.yaml``,
 ``configs/nerf_base.yaml`` and ``configs/nerf_lego.yaml`` load as they are.
-Options whose code path is not ported yet (other grid types, the voxel
-march, the NeRF app's TensorBoard renders) raise ``NotImplementedError``
+Options whose code path is not ported yet (other grid types, the NeRF
+app's TensorBoard renders) raise ``NotImplementedError``
 naming their ROADMAP item; ``--rng-impl`` selects a JAX generator and is
 accepted without effect (the port draws from one ``torch.Generator``).
 ``--ldecode-type`` other than 'single' raises too: the JAX apps parse it
@@ -346,8 +346,7 @@ def build_nerf_trainer_config(args):
 
 
 def build_tracer_config(args):
-    """Tracer config; the voxel march, not ported yet, raises in
-    ``RFTracerConfig``, naming its ROADMAP item."""
+    """Tracer config ('ray' or 'voxel' march)."""
     from shacira_tpu_torch.tracers.rf_tracer import RFTracerConfig
     return RFTracerConfig(
         raymarch_type=args.raymarch_type, num_steps=args.num_steps,

@@ -26,6 +26,12 @@ class MultiviewData:
     w: int
     dist_min: float = 0.0
     dist_max: float = 6.0
+    # depth point cloud in normalized [-1,1] scene coords (RTMV RGB-D); the
+    # trainer seeds its occupancy grid from it
+    pointcloud: Optional[np.ndarray] = None
+    # similarity transform applied to the camera origins; None = identity
+    norm_center: Optional[np.ndarray] = None
+    norm_scale: float = 1.0
 
     @property
     def num_views(self) -> int:

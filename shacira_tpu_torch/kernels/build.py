@@ -11,8 +11,9 @@ There is no fallback: if ``nvcc`` is missing or a build fails, this raises.
 For measurement only, :func:`load` with ``count_atomics=True`` gives the
 same source built with ``-DCOUNT_GLOBAL_ATOMICS`` into
 ``lib<name>_count.so``: its merging kernels also count the global float
-atomics they issue, read and cleared by :func:`take_global_atomics`.  The
-wrappers on the training path always load the normal build.
+atomics they issue, read and cleared by :func:`take_global_atomics`
+(``COUNTING_SOURCES``: the sources with float atomics).  The wrappers on
+the training path always load the normal build.
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ def _nvcc() -> str:
 
 
 COUNT_FLAGS = ('-DCOUNT_GLOBAL_ATOMICS',)
+COUNTING_SOURCES = ('paged_hash', 'scatter')
 
 
 def _library_path(name: str, count_atomics: bool = False) -> Path:
@@ -77,9 +79,10 @@ def build(name: str, count_atomics: bool = False) -> Path:
 
 
 def build_all() -> list:
-    """Compile every source under ``csrc/`` at once, normal and counting
-    builds, one ``nvcc`` each."""
-    jobs = [(n, c) for n in sources() for c in (False, True)]
+    """Compile every source under ``csrc/`` at once, and the counting
+    builds of ``COUNTING_SOURCES``, one ``nvcc`` each."""
+    jobs = [(n, False) for n in sources()] + [
+        (n, True) for n in sources() if n in COUNTING_SOURCES]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         return list(pool.map(lambda j: build(*j), jobs))
 

@@ -38,9 +38,20 @@ Integration (exclusive transmittance):
     rgb = sum w_i c_i ; alpha = sum w_i ; depth = sum w_i t_i
 White background: rgb + (1 - alpha); black: alpha * rgb.
 
-The voxel march waits for ROADMAP Queue A item 11; fields return (rgb,
-density) only (the JAX tracer's extra per-sample channels have no caller on
-the ported path).
+The 'voxel' march (``raymarch_type='voxel'``) walks each ray through the
+occupancy grid with the bounded DDA (``accel/occupancy.voxel_crossings``,
+kernel V1 on the card) and samples ``num_steps`` points inside each of its
+first ``max_intersections`` occupied crossings.  Densely, every sample is
+evaluated (masked) or, with ``max_samples``, the occupied ones compacted.
+On the paged layout (``eval_seg_budget > 0``, ``max_samples > 0``) a
+crossing is a segment: the crossings are stride-compacted to
+``eval_seg_budget`` before any sample exists (:func:`_trace_voxel_fused`)
+and their ``num_steps`` samples go through :func:`_trace_paged`; with
+``term_tau`` the crossings behind an estimated optical depth of
+``term_tau`` are dropped first (:func:`crossing_term_mask`).
+
+Fields return (rgb, density) only (the JAX tracer's extra per-sample
+channels have no caller on the ported path).
 """
 from __future__ import annotations
 
@@ -59,10 +70,10 @@ from shacira_tpu_torch.ops.scatter import segment_sum
 
 @dataclass(frozen=True)
 class RFTracerConfig:
-    raymarch_type: str = 'ray'     # only 'ray' is ported
+    raymarch_type: str = 'ray'     # 'ray' | 'voxel'
     num_steps: int = 64
     bg_color: str = 'white'
-    max_intersections: int = 64
+    max_intersections: int = 64    # 'voxel': DDA crossings kept per ray
     max_samples: int = 0           # >0: compact to K occupied samples
     # segmented march (paged layout): samples per culling segment
     segment_size: int = 0
@@ -84,10 +95,8 @@ class RFTracerConfig:
     lean_stage1: bool = False      # analytic midpoints, hashed jitter
 
     def __post_init__(self):
-        if self.raymarch_type != 'ray':
-            raise NotImplementedError(
-                f'raymarch_type={self.raymarch_type!r}: the voxel march is '
-                'ROADMAP Queue A item 11')
+        if self.raymarch_type not in ('ray', 'voxel'):
+            raise ValueError(f'raymarch_type {self.raymarch_type!r}')
         if self.lean_stage1 and self.fine_mode == 'kernel':
             # the reference's lean march takes a (2,) seed, but its
             # march_jitter_shape hands 'kernel' an [R, num_steps] array,
@@ -100,8 +109,11 @@ class RFTracerConfig:
 
 
 def march_jitter_shape(cfg: RFTracerConfig, num_rays: int):
-    """Shape of the U(0,1) march jitter :func:`trace` consumes: the lean
-    march takes two uniforms (its step seed), the others [R, num_steps]."""
+    """Shape of the U(0,1) march jitter :func:`trace` consumes: [R,
+    max_intersections, num_steps] for the voxel march, two uniforms (its
+    step seed) for the lean march, [R, num_steps] for the others."""
+    if cfg.raymarch_type == 'voxel':
+        return (num_rays, cfg.max_intersections, cfg.num_steps)
     if cfg.lean_stage1 and cfg.fine_mode == 'deferred':
         return (2,)
     return (num_rays, cfg.num_steps)
@@ -700,6 +712,86 @@ def _trace_ray_paged(occ_state, occ_cfg, cfg: RFTracerConfig, rays: Rays,
                         dil_qfn=dil_qfn)
 
 
+# ---------------------------------------------------------------------------
+# 'voxel' march: transmittance culling of DDA crossings, the fused paged
+# stage 2
+# ---------------------------------------------------------------------------
+
+def _cell_density(occ_state, occ_cfg, pts: torch.Tensor) -> torch.Tensor:
+    """The decayed-max density cached in the cells of ``pts`` [..., 3]."""
+    ci = _coarse_cells(pts, occ_cfg.res)
+    return occ_state['density'][ci[..., 0], ci[..., 1], ci[..., 2]]
+
+
+def _term_keep(dens: torch.Tensor, chord: torch.Tensor,
+               term_tau: float) -> torch.Tensor:
+    """[R, I] crossings in front of an estimated optical depth of
+    ``term_tau``: density x chord, exclusive prefix over the crossings."""
+    tau = dens * chord
+    cum = torch.cumsum(tau, dim=-1) - tau
+    return cum <= term_tau
+
+
+def crossing_term_mask(occ_state, occ_cfg, entries, exits, valid, rays: Rays,
+                       u_mid: torch.Tensor, S: int,
+                       term_tau: float) -> torch.Tensor:
+    """Transmittance culling on DDA crossings [R, I] without the [R, I*S]
+    sample tensors: each crossing's cached density at its sample ``S // 2``
+    (jitter ``u_mid`` [R, I]) times its chord, accumulated front to back;
+    the same kept set as :func:`voxel_term_mask` on the same jitter."""
+    chord = (exits - entries) * valid
+    depth_mid = entries + (exits - entries) * ((S // 2) + u_mid) / S
+    mid = (rays.origins[:, None, :]
+           + rays.dirs[:, None, :] * depth_mid[..., None])
+    return _term_keep(_cell_density(occ_state, occ_cfg, mid), chord,
+                      term_tau)
+
+
+def voxel_term_mask(occ_state, occ_cfg, m: dict, R: int, I: int, S: int,
+                    term_tau: float) -> torch.Tensor:
+    """Transmittance culling over the crossings of a dense voxel march
+    ``m`` (:func:`occupancy.raymarch_voxel`): [R, I] bool, True while the
+    estimated optical depth in front of the crossing (cached density at its
+    sample ``S // 2`` x its chord, the sum of its masked deltas) is at most
+    ``term_tau``.  Padding crossings add nothing."""
+    deltas = m['deltas'].reshape(R, I, S)
+    mask = m['mask'].reshape(R, I, S)
+    chord = torch.sum(deltas * mask, dim=-1)
+    mid = m['samples'].reshape(R, I, S, 3)[:, :, S // 2, :]
+    return _term_keep(_cell_density(occ_state, occ_cfg, mid), chord,
+                      term_tau)
+
+
+def _trace_voxel_fused(occ_state, occ_cfg, cfg: RFTracerConfig, rays: Rays,
+                       jitter) -> dict:
+    """Stage 2 of the paged voxel trace: the DDA crossings (culled with
+    ``term_tau``) stride-compacted to ``eval_seg_budget`` first, then
+    ``num_steps`` samples inside each survivor only; the same rows as
+    sampling every crossing and compacting after, without the [R, I, S]
+    tensors.  ``jitter``: [R, I, S] U(0,1) tensor or a generator."""
+    R = rays.origins.shape[0]
+    dev = rays.origins.device
+    I, S = cfg.max_intersections, cfg.num_steps
+    c = occ.voxel_crossings(occ_state, occ_cfg, rays, I)
+    entries, exits, valid = c['entries'], c['exits'], c['valid']
+    u = occ.march_uniform(jitter, (R, I, S), dev)
+    if cfg.term_tau > 0:
+        valid = valid & crossing_term_mask(
+            occ_state, occ_cfg, entries, exits, valid, rays, u[..., S // 2],
+            S, cfg.term_tau)
+    k2 = cfg.eval_seg_budget
+    src2, valid2, _ = _stride_compact(valid.reshape(-1), k2)
+    r_id = torch.div(src2, I, rounding_mode='floor')
+    ent2 = entries.reshape(-1)[src2]
+    ext2 = exits.reshape(-1)[src2]
+    frac = (torch.arange(S, device=dev) + u.reshape(R * I, S)[src2]) / S
+    depth2 = ent2[:, None] + (ext2 - ent2)[:, None] * frac
+    delta2 = ((ext2 - ent2) / S)[:, None].expand(k2, S)
+    samples2, dirs2 = _segment_rows(rays, r_id, depth2)
+    return _seg_dict(samples2, dirs2, valid2[:, None].expand(k2, S), depth2,
+                     delta2, r_id, valid2)
+
+
 def _trace_compact_flat(field_fn, rows: dict, flat_mask: torch.Tensor,
                         ray_of, max_samples: int, num_rays: int,
                         rays: Rays) -> dict:
@@ -725,10 +817,11 @@ def trace(field_fn, occ_state: dict, occ_cfg: occ.OccupancyGridConfig,
     Args:
         field_fn(coords [N,3], dirs [N,3]) -> (rgb [N,3], density [N,1]).
         jitter: U(0,1) tensor of :func:`march_jitter_shape` ([R,
-            num_steps], or (2,) for the lean march) or a
-            ``torch.Generator``.
+            num_steps], [R, max_intersections, num_steps] for the voxel
+            march, or (2,) for the lean march) or a ``torch.Generator``.
         encode_split: (zbar_fn, finish_fn, head_fn) for the paged trace
-            (``segment_size > 0``, ``eval_seg_budget > 0``): ``zbar_fn(
+            (``segment_size > 0`` or the voxel march, ``eval_seg_budget >
+            0``): ``zbar_fn(
             coords [K*G, 3], grouping)`` returns the block-local latents,
             ``finish_fn(zbar_c, coords_c)`` the features on the compacted
             rows and ``head_fn(feats, dirs)`` (rgb, density).  With
@@ -739,7 +832,18 @@ def trace(field_fn, occ_state: dict, occ_cfg: occ.OccupancyGridConfig,
         hit [R] bool.
     """
     R = rays.origins.shape[0]
-    if cfg.segment_size > 0 and cfg.max_samples > 0:
+    voxel = cfg.raymarch_type == 'voxel'
+    if (voxel and encode_split is not None and cfg.eval_seg_budget > 0
+            and cfg.max_samples > 0):
+        # each crossing's num_steps samples lie in one occupancy cell, so
+        # the crossing axis is the paged trace's segment axis
+        if len(encode_split) != 3:
+            raise ValueError('the paged trace takes the 3-way encode_split '
+                             '(zbar_fn, finish_fn, head_fn)')
+        with record_function('trace/march'):
+            seg2 = _trace_voxel_fused(occ_state, occ_cfg, cfg, rays, jitter)
+        return _composite(_trace_paged(*encode_split, seg2, cfg, R), cfg)
+    if not voxel and cfg.segment_size > 0 and cfg.max_samples > 0:
         if encode_split is not None and cfg.eval_seg_budget > 0:
             return _composite(_trace_ray_paged(
                 occ_state, occ_cfg, cfg, rays, jitter, encode_split), cfg)
@@ -755,7 +859,17 @@ def trace(field_fn, occ_state: dict, occ_cfg: occ.OccupancyGridConfig,
             cfg.max_samples, R, rays)
         return _composite(out, cfg)
     with record_function('trace/march'):
-        m = occ.raymarch_ray(occ_state, occ_cfg, rays, cfg.num_steps, jitter)
+        if voxel:
+            I, S = cfg.max_intersections, cfg.num_steps
+            m = occ.raymarch_voxel(occ_state, occ_cfg, rays, S, jitter, I)
+            if cfg.term_tau > 0:
+                keep = voxel_term_mask(occ_state, occ_cfg, m, R, I, S,
+                                       cfg.term_tau)
+                m['mask'] = (m['mask'].reshape(R, I, S)
+                             & keep[..., None]).reshape(R, I * S)
+        else:
+            m = occ.raymarch_ray(occ_state, occ_cfg, rays, cfg.num_steps,
+                                 jitter)
     samples, mask = m['samples'], m['mask']
     S = mask.shape[1]
     if cfg.max_samples and cfg.max_samples < R * S:

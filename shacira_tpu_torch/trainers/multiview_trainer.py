@@ -30,7 +30,12 @@ Semantics kept from the JAX package:
     (``active_tracer_cfg``) takes sample and segment budgets on the
     ``{2^k, 1.5 * 2^k}`` ladder from probes of the occupied-sample and
     live-segment fractions; evaluation keeps the base config;
-  * the random-LOD and LOD-growth curricula as a per-step ``lod_mask``.
+  * the random-LOD and LOD-growth curricula as a per-step ``lod_mask``;
+  * the ``'voxel'`` march: on depth-captured data (RTMV) the occupancy is
+    seeded from the dataset's point cloud; on the paged layout each DDA
+    crossing's ``num_steps`` samples form a segment of the paged trace,
+    and the adaptive budgets come from the occupied cell fraction and the
+    probed live crossings per ray (:meth:`_live_cell_hits_per_ray`).
 
 Every random draw of a step (SGA uniforms, rate-loss noise, march jitter)
 is a :class:`StepDraws` argument of :meth:`MultiviewTrainer.step`, and the
@@ -128,18 +133,28 @@ def budget_rung(x: float) -> int:
 def adapted_budgets(base: rf_tracer.RFTracerConfig, num_rays: int,
                     sample_frac: float, seg_frac: Optional[float],
                     min_budget: int, headroom: float) -> dict:
-    """Budgets for probed fractions of occupied samples and (on the paged
-    segmented march) of live segments, each capped at its base value."""
-    expected = sample_frac * num_rays * base.num_steps
+    """Budgets from probed fractions, each capped at its base value.
+
+    ``sample_frac``: the occupied fraction of the 'ray' march's samples, or
+    for the 'voxel' march the occupied fraction of the grid's cells (the
+    expected samples are then that fraction of ``R * num_steps *
+    max_intersections``).  ``seg_frac`` (paged second stage only): the
+    live-segment fraction of the segmented 'ray' march, or the live
+    crossings per ray of the 'voxel' march, whose segments are crossings
+    of ``num_steps`` samples."""
+    voxel = base.raymarch_type == 'voxel'
+    expected = sample_frac * num_rays * base.num_steps * (
+        base.max_intersections if voxel else 1)
     k = min(budget_rung(max(min_budget, headroom * expected)),
             base.max_samples)
     new = {'max_samples': k}
     if seg_frac is not None:
-        g = base.segment_size
-        live = seg_frac * num_rays * (base.num_steps // g)
+        g = base.num_steps if voxel else base.segment_size
+        live = seg_frac * num_rays * (1 if voxel else base.num_steps // g)
         want = budget_rung(max(max(256, min_budget // g), headroom * live))
-        sb_base = base.seg_budget or max(1, 8 * base.max_samples // g)
-        new['seg_budget'] = min(want, sb_base)
+        if not voxel:
+            sb_base = base.seg_budget or max(1, 8 * base.max_samples // g)
+            new['seg_budget'] = min(want, sb_base)
         new['eval_seg_budget'] = min(want, base.eval_seg_budget)
         new['max_samples'] = min(k, new['eval_seg_budget'] * g)
     return new
@@ -185,16 +200,29 @@ class MultiviewTrainer:
         self.set_params(nerf_mod.nerf_init(self.generator, model_cfg,
                                            self.device))
         self.noise = torch.zeros_like(self.params['grid']['codebook'])
-        self.occ_state = occ.occupancy_init(model_cfg.occ_cfg, self.device)
+        self.voxel = tracer_cfg.raymarch_type == 'voxel'
+        if getattr(dataset, 'pointcloud', None) is not None:
+            # depth-captured scenes (RTMV): the occupancy starts as the
+            # cells of the depth point cloud
+            self.occ_state = occ.occupancy_from_points(
+                model_cfg.occ_cfg, dataset.pointcloud, self.device)
+        else:
+            self.occ_state = occ.occupancy_init(model_cfg.occ_cfg,
+                                                self.device)
         self.use_paged = (gcfg.hash_layout == 'paged' and self.affine
-                          and tracer_cfg.segment_size > 0
+                          and (tracer_cfg.segment_size > 0 or self.voxel)
                           and tracer_cfg.eval_seg_budget > 0)
         if tracer_cfg.segment_size > 0:
             rf_tracer.validate_segment_cover(
                 tracer_cfg, model_cfg.occ_cfg, float(dataset.dist_min),
                 float(dataset.dist_max))
             self._refresh_coarse()
-        if self.use_paged:
+        if self.use_paged and self.voxel:
+            # a crossing's samples lie in one occupancy cell: within its
+            # diagonal of the center sample ([0,1] coords)
+            ph.validate_paged_cover(
+                gcfg.spec, float(np.sqrt(3.0)) / model_cfg.occ_cfg.res)
+        elif self.use_paged:
             gss = tracer_cfg.group_seg_size or tracer_cfg.segment_size
             if tracer_cfg.segment_size % gss:
                 raise ValueError(f'group_seg_size {gss} must divide '
@@ -265,7 +293,9 @@ class MultiviewTrainer:
         ``kernel_occ`` zbar_fn also returns B2's occupancy row; finish_fn
         applies ``lod_mask``."""
         mcfg, tcfg = self.model_cfg, self.tracer_cfg
-        seg_group = tcfg.group_seg_size or tcfg.segment_size
+        # 'voxel': a segment is one crossing's num_steps samples
+        seg_group = (tcfg.num_steps if self.voxel
+                     else tcfg.group_seg_size or tcfg.segment_size)
 
         if kernel_occ:
             ld = mcfg.grid.effective_latent_dim
@@ -340,8 +370,9 @@ class MultiviewTrainer:
 
         d = self.dataset
         rays = make_rays(rays_o, rays_d, d.dist_min, d.dist_max)
-        split = (self._encode_split(p, parts, tcfg.fine_mode == 'kernel',
-                                    lod_mask)
+        split = (self._encode_split(
+                     p, parts, tcfg.fine_mode == 'kernel' and not self.voxel,
+                     lod_mask)
                  if self.use_paged else None)
         rb = rf_tracer.trace(field_fn, self.occ_state, mcfg.occ_cfg, tcfg,
                              rays, draws.march_u, encode_split=split)
@@ -433,19 +464,47 @@ class MultiviewTrainer:
         return self._probe_fraction(body, (self.num_rays, base.num_steps),
                                     jitter)
 
+    def _live_cell_hits_per_ray(self, jitter=None) -> float:
+        """Mean occupied-cell crossings per ray of the base config's voxel
+        march (at most ``max_intersections``; with ``term_tau`` the ones in
+        front of the estimated optical depth); ``jitter`` [num_rays,
+        max_intersections, num_steps]."""
+        base = self.tracer_cfg
+        I, S = base.max_intersections, base.num_steps
+
+        def body(rays, u):
+            ocfg = self.model_cfg.occ_cfg
+            m = occ.raymarch_voxel(self.occ_state, ocfg, rays, S, u, I)
+            R = rays.origins.shape[0]
+            live = m['mask'].reshape(R, I, S).any(dim=-1)
+            if base.term_tau > 0:
+                live = live & rf_tracer.voxel_term_mask(
+                    self.occ_state, ocfg, m, R, I, S, base.term_tau)
+            return torch.mean(torch.sum(live.float(), dim=-1))
+
+        return self._probe_fraction(body, (self.num_rays, I, S), jitter)
+
     def _adapt_budget(self):
         """Set ``active_tracer_cfg``'s budgets from the probes
-        (:func:`adapted_budgets`): the sample budget, and on the segmented
-        march with a second stage the segment budgets, which size every
-        stage after the cull (grouping, B2/B3, compaction, head)."""
+        (:func:`adapted_budgets`): the sample budget, and on a march with a
+        paged second stage the segment budgets, which size every stage
+        after the cull (grouping, B2/B3, compaction, head).  The voxel
+        march reads the occupied cell fraction (one host read) and probes
+        its live crossings per ray."""
         base = self.tracer_cfg
         if base.max_samples <= 0:
             return
-        seg = base.segment_size > 0 and base.eval_seg_budget > 0
-        new = adapted_budgets(
-            base, self.num_rays, self._occupied_sample_fraction(),
-            self._live_segment_fraction() if seg else None,
-            self.cfg.min_budget, self.cfg.budget_headroom)
+        if self.voxel:
+            frac = float(torch.mean(self.occ_state['occ'].float()))
+            seg = (self._live_cell_hits_per_ray()
+                   if base.eval_seg_budget > 0 else None)
+        else:
+            frac = self._occupied_sample_fraction()
+            seg = (self._live_segment_fraction()
+                   if base.segment_size > 0 and base.eval_seg_budget > 0
+                   else None)
+        new = adapted_budgets(base, self.num_rays, frac, seg,
+                              self.cfg.min_budget, self.cfg.budget_headroom)
         self.active_tracer_cfg = replace(base, **new)
 
     def _presample(self, n: int):

@@ -198,10 +198,12 @@ def test_trace_matches_jax(max_samples):
 
 
 def test_unported_march_modes_raise():
-    """The voxel march is not ported; 'kernel' with lean stage 1 crashes in
-    the reference and raises here."""
-    with pytest.raises(NotImplementedError):
-        trt.RFTracerConfig(raymarch_type='voxel')
+    """'kernel' with lean stage 1 crashes in the reference and raises here,
+    as does a march type the JAX package lacks; the voxel march is ported
+    (tests/test_torch_voxel_trace.py)."""
+    assert trt.RFTracerConfig(raymarch_type='voxel').raymarch_type == 'voxel'
+    with pytest.raises(ValueError):
+        trt.RFTracerConfig(raymarch_type='cone')
     with pytest.raises(ValueError, match='crashes in the reference'):
         trt.RFTracerConfig(segment_size=16, max_samples=1024,
                            fine_mode='kernel', lean_stage1=True)
