@@ -94,12 +94,15 @@ Phases, each of which must pass (exit code 1 otherwise):
 15. voxel_kernels -- on a generated RTMV scene (40 views of 256 x 256,
                read at configs/nerf_V8.yaml's mip 2): kernel V1 (the DDA
                walk of the 'voxel' march) on 4096 of its rays against its
-               plain version (``valid`` equal, depths within 1 ulp), on the
-               occupancy seeded from the scene's point cloud and on a grid
-               with every cell occupied; B1(a) as the flat V8 backward (20
-               LODs, width 2, 671,088,640 updates into 1,966,521 rows),
-               B1(b) as the paged voxel step's per-ray sums, B2 and B3 at
-               ld 2 on 262,144 voxel slots; each timed, with its bound;
+               plain version (``valid`` and depths equal bit for bit), on
+               the occupancy seeded from the scene's point cloud and on a
+               grid with every cell occupied, and on 3072 rays that start
+               on cell faces, edges and corners, stall or miss the box, on
+               the seeded grid; its longest walk and time a step of it;
+               B1(a) as the flat V8 backward (20 LODs, width 2,
+               671,088,640 updates into 1,966,521 rows), B1(b) as the
+               paged voxel step's per-ray sums, B2 and B3 at ld 2 on
+               262,144 voxel slots; each timed, with its bound;
 16. voxel_parity -- one small voxel step (latent_dim 2) on the card
                against the same step on the CPU, flat dense and paged;
 17. v8      -- ``apps/train_nerf.main`` with configs/nerf_V8.yaml unchanged
@@ -161,6 +164,37 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int, replays: int = 5) -> float:
+    """Mean milliseconds of ``fn()`` on the device alone: ``reps`` calls
+    captured in one CUDA graph, replayed ``replays`` times after a warm-up
+    and timed with CUDA events, so that no host work sits between the
+    launches (``time_ms`` times the host's launches too, which a kernel
+    shorter than its wrapper's Python waits on)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * replays)
+    del graph
+    return ms
 
 
 def bound(n_rows: int, f: int, table_rows: int):
@@ -1824,12 +1858,68 @@ def _ulps(got, want) -> float:
     return float(((got - want).abs() / step).max())
 
 
+def dda_edge_rays(kind: str, n: int, res: int, seed: int = 0):
+    """(origins, dirs, dist_min, dist_max) numpy f32 [n, 3] / [n] of a ray
+    family that takes a DDA walk off its common path on a res^3 grid in the
+    [-1, 1]^3 box: origins exactly on a cell face ('face'), edge ('edge')
+    or corner ('corner'); rays along grid diagonals from a cell corner, in
+    3D and in a plane ('diagonal': two or three faces crossed at once);
+    direction components in (-1e-9, 0], which stall the walk, beside
+    +5e-10, which does not ('stall'); rays whose box interval is empty
+    ('empty': aimed away, distance bounds that end before the box, or
+    inverted bounds)."""
+    rng = np.random.RandomState(seed)
+    cw = 2.0 / res
+    o = rng.uniform(-0.95, 0.95, (n, 3))
+    d = rng.normal(size=(n, 3))
+    dmin, dmax = np.zeros(n), np.full(n, 6.0)
+    if kind in ('face', 'edge', 'corner'):
+        snap = np.argsort(rng.rand(n, 3), axis=1) < ('face', 'edge',
+                                                     'corner').index(kind) + 1
+        o = np.where(snap, np.round((o + 1.0) / cw) * cw - 1.0, o)
+    elif kind == 'diagonal':
+        d = rng.choice([-1.0, 1.0], (n, 3))
+        d[np.arange(0, n, 2), rng.randint(0, 3, (n + 1) // 2)] = 0.0
+        corner = rng.randint(0, res + 1, (n, 3)) * cw - 1.0
+        o = corner - rng.randint(0, res, (n, 1)) * cw * d
+    elif kind == 'stall':
+        outside = np.arange(n) % 2 == 1
+        o[outside] = 2.5 * d[outside] / np.linalg.norm(d[outside], axis=-1,
+                                                       keepdims=True)
+        d = rng.uniform(-0.9, 0.9, (n, 3)) - np.where(outside[:, None], o, 0)
+    elif kind == 'empty':
+        o = 2.5 * d / np.linalg.norm(d, axis=-1, keepdims=True)
+        d = rng.uniform(-0.5, 0.5, (n, 3)) - o
+        third = np.arange(n) % 3
+        d[third == 0] *= -1.0                       # aimed away
+        dmax[third == 1] = 0.5                      # ends before the box
+        o[third == 2] *= 0.2                        # inside, bounds inverted
+        dmin[third == 2], dmax[third == 2] = 3.0, 2.0
+    else:
+        raise ValueError(f'unknown ray family {kind!r}')
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    if kind == 'stall':
+        tiny = np.float32([0.0, -0.0, -1e-10, -9.9e-10, 5e-10])
+        axis = rng.randint(0, 3, n)
+        d[np.arange(n), axis] = tiny[np.arange(n) % 5]
+        two = np.arange(0, n, 4)                    # and a second axis
+        d[two, (axis[two] + 1) % 3] = tiny[rng.randint(0, 4, two.size)]
+    return (o.astype(np.float32), d, dmin.astype(np.float32),
+            dmax.astype(np.float32))
+
+
+DDA_EDGE_KINDS = ('face', 'edge', 'corner', 'diagonal', 'stall', 'empty')
+
+
 def check_dda(name, state, ocfg, rays, max_isect, reps=20):
-    """Kernel V1 against its plain version: ``valid`` equal, depths to 1
-    ulp; timed with CUDA events (the plain loop too), with its bound: the
-    steps the walks take (each reads one occupancy byte and does
-    ``DDA_STEP_OPS`` f32 operations), the rays read and the slots written
-    once."""
+    """Kernel V1 against its plain version: ``valid`` and the depths equal
+    bit for bit; timed with CUDA events over eager launches (``ms``, as
+    every kernel, and the plain loop), also on the device alone
+    (``graph_ms``: ``device_ms``), with its bound: the steps the walks take
+    (each reads one occupancy byte and does ``DDA_STEP_OPS`` f32
+    operations), the rays read and the slots written once.  Also the
+    longest walk (the most steps a ray takes: the chain that sets the time)
+    and the kernel's device microseconds per step of it."""
     import torch
     from shacira_tpu_torch.accel import occupancy as occ
     args = (state, ocfg, rays, max_isect)
@@ -1840,45 +1930,56 @@ def check_dda(name, state, ocfg, rays, max_isect, reps=20):
     ulps = max(_ulps(got[k], want[k]) for k in ('entries', 'exits'))
     err = max(float((got[k] - want[k]).abs().max())
               for k in ('entries', 'exits'))
+    exact = all(torch.equal(got[k], want[k]) for k in got)
     _, _, occ_l, ahead = occ.dda_steps(state, ocfg, rays)
     before = torch.cumsum(occ_l.long(), dim=1) - occ_l.long()
-    walked = int((ahead & (before < max_isect)).sum())
+    per_ray = (ahead & (before < max_isect)).sum(dim=1)
+    walked, longest = int(per_ray.sum()), int(per_ray.max())
     crossings = int(want['valid'].sum())
-    del got, want, occ_l, ahead, before
+    del got, want, occ_l, ahead, before, per_ray
     n = rays.origins.shape[0]
     t_bytes = (walked + n * 8 * 4 + n * max_isect * 9) / HBM_BYTES_PER_S * 1e3
     t_ops = walked * DDA_STEP_OPS / F32_FLOPS * 1e3
     b_ms, b_by = (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops,
                                                               'operations')
     ms = time_ms(lambda: occ._launch_dda(*args), reps)
+    device_ms = graph_ms(lambda: occ._launch_dda(*args), reps)
     plain_ms = time_ms(lambda: occ.voxel_crossings_plain(*args), 1)
+    us_step = device_ms * 1e3 / max(longest, 1)
     log(f'  {name}: rays={n} res={ocfg.res} I={max_isect} steps walked '
-        f'{walked} ({walked / n:.1f} a ray), crossings {crossings}, valid '
-        f'mismatches {mismatches}, depth max_abs_err={err:.3e} max ulps '
-        f'{ulps:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+        f'{walked} ({walked / n:.1f} a ray, longest {longest}), crossings '
+        f'{crossings}, valid mismatches {mismatches}, depth max_abs_err='
+        f'{err:.3e} max ulps {ulps:.3g}; kernel {ms:.4f} ms, '
+        f'{device_ms:.4f} ms on the device ({us_step:.4f} us a step of the '
+        f'longest walk), plain {plain_ms:.4f} ms, bound '
         f'{b_ms:.6f} ms ({b_by})')
-    if mismatches or not ulps <= 1.0:
+    if mismatches or not exact:
         raise AssertionError(f'{name}: V1 disagrees with its plain version '
                              f'({mismatches} valid mismatches, {ulps} ulps)')
     return {'max_abs_err': err, 'max_rel_err': None, 'ms': ms,
             'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
-            'library_ms': None, 'valid_mismatches': mismatches,
-            'max_ulps': ulps, 'steps_walked': walked,
+            'library_ms': None, 'device_ms': device_ms,
+            'valid_mismatches': mismatches, 'max_ulps': ulps,
+            'steps_walked': walked,
+            'longest_walk': longest, 'us_per_step': us_step,
             'crossings': crossings}
 
 
 def phase_voxel_kernels(dev, data):
     """The kernels at the voxel path's shapes: V1 on 4096 rays of the v8
     scene against its plain version, on the occupancy seeded from the
-    scene's point cloud and on a grid with every cell occupied (every ray
-    overflows its 64 slots); B1(a) as the flat V8 backward (4096 x 64 x 16
-    samples of the dense voxel march in ray order, masked samples' zero
-    gradients, 20 LODs x 8 corners, width 2, into 1,966,521 rows); B1(b) as
-    the paged voxel step's per-ray sums (262,144 x 5 into 4096); B2 and B3
-    at ``ld`` 2 on 16,384 crossings of 16 samples (262,144 slots)."""
+    scene's point cloud, on a grid with every cell occupied (every ray
+    overflows its 64 slots) and, on the seeded grid, on 3072 rays of
+    ``DDA_EDGE_KINDS`` (the walk's rare paths); B1(a) as the flat V8
+    backward (4096 x 64 x 16 samples of the dense voxel march in ray order,
+    masked samples' zero gradients, 20 LODs x 8 corners, width 2, into
+    1,966,521 rows); B1(b) as the paged voxel step's per-ray sums (262,144
+    x 5 into 4096); B2 and B3 at ``ld`` 2 on 16,384 crossings of 16
+    samples (262,144 slots)."""
     import torch
     from shacira_tpu_torch import config as cfg_mod
     from shacira_tpu_torch.accel import occupancy as occ
+    from shacira_tpu_torch.core.rays import make_rays
     from shacira_tpu_torch.ops import hashgrid, scatter
     args = _nerf_args(v8_argv(dev))
     ocfg = occ.OccupancyGridConfig(args.blas_level)
@@ -1898,6 +1999,15 @@ def phase_voxel_kernels(dev, data):
         'voxel_dda (V1), every cell occupied', occ.occupancy_init(ocfg, dev),
         ocfg, rays, I), **v1, use='voxel march DDA before the first prune '
                                   '(every cell occupied, slots overflow)')
+    edge = [dda_edge_rays(kind, 512, ocfg.res, seed=i)
+            for i, kind in enumerate(DDA_EDGE_KINDS)]
+    edge_rays = make_rays(*(torch.as_tensor(np.concatenate(v), device=dev)
+                            for v in zip(*edge)))
+    rows['voxel_dda_edge_rays'] = dict(check_dda(
+        'voxel_dda (V1), seeded occupancy, rays on cell faces, edges and '
+        'corners, stalling and with empty box intervals', seeded, ocfg,
+        edge_rays, I), **v1, use='the walk off its common path: '
+                                 f'{", ".join(DDA_EDGE_KINDS)} rays')
     b1 = dict(source='shacira_tpu_torch/csrc/scatter.cu',
               replaces='shacira_tpu/ops/pallas_scatter.py:29')
     gen = torch.Generator(device=dev)
@@ -2228,6 +2338,11 @@ RANGES = ('step/draws', 'step/recalib', 'step/decode', 'trace/march',
           'trace/group', 'trace/compact', 'field/encode',
           'field/paged_encode', 'field/finish', 'field/head',
           'trace/integrate', 'step/rate_loss', 'step/adam', 'step/best')
+# the port's CUDA kernels by function name: launched through ctypes, they
+# are no PyTorch op and the ranges' device time does not hold them (it
+# falls in the remainder), so phase_profile reports them by name
+PORT_KERNELS = ('scatter_add_rows_kernel', 'paged_gather_kernel',
+                'paged_scatter_kernel', 'voxel_dda_kernel')
 
 
 def phase_profile(trainer, steps: int, label: str, step_ms: float,
@@ -2235,7 +2350,8 @@ def phase_profile(trainer, steps: int, label: str, step_ms: float,
     """Device time by step stage (the record_function ranges of the port)
     and by kernel over ``steps`` training steps under torch.profiler.  The
     backward runs on autograd's device thread, outside those ranges: it is
-    the remainder of the device's busy time.
+    the remainder of the device's busy time, with the port's own CUDA
+    kernels (``PORT_KERNELS``, also reported by name).
 
     The idle share compares the device's busy time per step with the mean
     step time measured without the profiler (``step_ms``).  Host syncs
@@ -2276,6 +2392,8 @@ def phase_profile(trainer, steps: int, label: str, step_ms: float,
     per_step = {k: v / 1e3 / steps for k, v in ranges.items()}
     per_step['backward (remainder)'] = busy_ms - sum(per_step.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    port = {name: sum(v for n, v in kernels.items() if name in n)
+            / 1e3 / steps for name in PORT_KERNELS}
     out = {'profile': label, 'steps': steps,
            'profiled_wall_ms_per_step': wall * 1e3 / steps,
            'unprofiled_step_ms': step_ms,
@@ -2285,6 +2403,7 @@ def phase_profile(trainer, steps: int, label: str, step_ms: float,
            'htod_copies_per_step': copies / steps,
            'device_ops_per_step': device_ops / steps,
            'stage_device_ms_per_step': per_step,
+           'port_kernel_device_ms_per_step': port,
            'top_kernels_ms_per_step': [[n[:90], v / 1e3 / steps]
                                        for n, v in top]}
     log('  ' + json.dumps(out))
@@ -2425,13 +2544,15 @@ def main(argv=None) -> int:
                ('scatter_add_pearl', 'scatter_add', 'pearl'),
                ('voxel_dda', 'voxel_crossings', 'v8'),
                ('voxel_dda_all_occupied', 'voxel_crossings', 'voxel'),
+               ('voxel_dda_edge_rays', 'voxel_crossings', 'v8'),
                ('scatter_add_v8', 'scatter_add', 'v8'),
                ('segment_sum_voxel', 'segment_sum', 'voxel'),
                ('paged_gather_voxel', 'paged_gather', 'voxel'),
                ('paged_scatter_voxel', 'paged_scatter', 'voxel'))
     counts = ('updates', 'atomics', 'distinct_per_tile',
               'occupancy_row_mismatches', 'valid_mismatches', 'max_ulps',
-              'steps_walked', 'crossings')
+              'steps_walked', 'longest_walk', 'us_per_step', 'crossings',
+              'device_ms')
     kernels = []
     for name, wrapper, path in path_of:
         row = rows[name]

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time versions of the port's kernels against each other on the card, on
-``chip_smoke.py``'s inputs at the lego step's shapes.
+``chip_smoke.py``'s inputs at the lego and V8 steps' shapes.
 
-    python3 compare_kernels.py [--baseline DIR] [--out FILE]
+    python3 compare_kernels.py [--baseline DIR] [--only b|v1] [--out FILE]
 
 Versions, each built anew with ``build.NVCC_FLAGS`` into
 ``build/compare/``:
@@ -15,18 +15,26 @@ Versions, each built anew with ``build.NVCC_FLAGS`` into
   knows);
 * ``tree_no_loads`` (B2 rows only): this checkout's ``paged_hash.cu``
   built with ``-DGATHER_WITHOUT_LOADS``, B2's arithmetic without its table
-  reads -- what the loads cost.  Not checked against the plain version.
+  reads -- what the loads cost.  Not checked against the plain version;
+* V1 (``csrc/voxel_dda.cu``): ``tree`` and ``baseline`` as above.
 
 Inputs: ``chip_smoke.scatter_inputs`` (B1(a) one LOD, on random points and
 on ray-ordered samples, B1(b)), ``chip_smoke.paged_inputs`` (B2 and B3 at
 train shapes, B2 also with its occupancy row of a 128^3 grid) and
 ``chip_smoke.prune_inputs`` (B2 at the prune's 2,097,152 rows).  On the
 occupancy-row input a baseline without that row runs B2 without it.
-Every version is launched through the port's own launch helpers and first
-held against the plain version on every input (1e-5 of the largest value;
+V1's inputs: 4096 rays of a view of ``chip_smoke.write_rtmv_scene``'s
+scene (``chip_smoke.v8_rays``) on the occupancy seeded from its point
+cloud and on a grid with every cell occupied, res 128, I 64; every
+version is first held bit for bit against the plain version on those and
+on the seeded grid with ``chip_smoke.dda_edge_rays``.
+Every version is launched through the port's own launch helpers (V1's
+other builds through :func:`_launch_dda`, the same call) and first held
+against the plain version on every input (1e-5 of the largest value;
 the occupancy row exactly); then the versions are timed with CUDA events,
 in order and in reverse (A B B A), each turn ``REPS`` launches or enough
-for ``TURN_MS`` of the first version's time, whichever is more.  Also counts,
+for ``TURN_MS`` of the first version's time, whichever is more (V1 also
+on the device alone, ``chip_smoke.graph_ms``: ``device_ms``).  Also counts,
 from ``cuobjdump -sass`` of each version's ``paged_hash`` library, the
 SASS instructions of each kernel and its ``MUFU.RCP`` (one per integer
 division by a runtime value).  Prints the card line and one JSON line,
@@ -54,34 +62,37 @@ TURN_MS = 20.0     # and at least this long: short kernels get more
 NO_LOADS = 'tree_no_loads'
 
 
-def _build(baseline):
+def _build(baseline, only=None):
     """Compile every version's sources in parallel: ({label: {name:
-    ctypes.CDLL}}, {label: paged_hash library path})."""
+    ctypes.CDLL}}, {label: {name: library path}})."""
     from shacira_tpu_torch.kernels.build import CSRC, compile_source
     trees = {'tree': CSRC}
     if baseline:
         trees['baseline'] = Path(baseline) / 'shacira_tpu_torch' / 'csrc'
     shutil.rmtree(OUT_DIR, ignore_errors=True)    # another tree's build
+    names = {None: ('scatter', 'paged_hash', 'voxel_dda'),
+             'b': ('scatter', 'paged_hash'), 'v1': ('voxel_dda',)}[only]
     jobs = [(label, name, csrc / f'{name}.cu',
              OUT_DIR / label / f'lib{name}.so', ())
-            for label, csrc in trees.items()
-            for name in ('scatter', 'paged_hash')]
-    jobs.append((NO_LOADS, 'paged_hash', CSRC / 'paged_hash.cu',
-                 OUT_DIR / NO_LOADS / 'libpaged_hash.so',
-                 ('-DGATHER_WITHOUT_LOADS',)))
+            for label, csrc in trees.items() for name in names
+            if (csrc / f'{name}.cu').exists()]
+    if 'paged_hash' in names:
+        jobs.append((NO_LOADS, 'paged_hash', CSRC / 'paged_hash.cu',
+                     OUT_DIR / NO_LOADS / 'libpaged_hash.so',
+                     ('-DGATHER_WITHOUT_LOADS',)))
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         libs = list(pool.map(lambda j: compile_source(j[2], j[3], j[4]),
                              jobs))
     out, paths = {}, {}
     for (label, name, _, _, _), lib in zip(jobs, libs):
         out.setdefault(label, {})[name] = ctypes.CDLL(str(lib))
-        if name == 'paged_hash':
-            paths[label] = lib
+        paths.setdefault(label, {})[name] = lib
     return out, paths
 
 
 def sass_counts(lib: Path) -> dict:
-    """{kernel: {'instructions': n, 'MUFU.RCP': n}} of a library's SASS."""
+    """{kernel: {'instructions': n, 'MUFU.RCP': n}} of a library's SASS
+    (a MUFU.RCP for each division by a runtime value)."""
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     text = subprocess.run([tool, '-sass', str(lib)], capture_output=True,
                           text=True, check=True).stdout
@@ -97,12 +108,77 @@ def sass_counts(lib: Path) -> dict:
     return out
 
 
+def _launch_dda(lib, state, ocfg, rays, max_isect: int) -> dict:
+    """``occupancy._launch_dda`` with ``lib``'s build of V1: the same C
+    call on the current stream into fresh outputs."""
+    import torch
+    fn = lib.voxel_dda
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ins = [t.contiguous() for t in (rays.origins, rays.dirs, rays.dist_min,
+                                    rays.dist_max, state['occ'])]
+    shape, dev = (ins[0].shape[0], max_isect), ins[0].device
+    out = {'entries': torch.empty(shape, dtype=torch.float32, device=dev),
+           'exits': torch.empty(shape, dtype=torch.float32, device=dev),
+           'valid': torch.empty(shape, dtype=torch.bool, device=dev)}
+    err = fn(*(t.data_ptr() for t in ins),
+             *(out[k].data_ptr() for k in ('entries', 'exits', 'valid')),
+             shape[0], ocfg.res, max_isect,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'voxel_dda launch failed: CUDA error {err}')
+    return out
+
+
+def _dda_cases(dev, libs):
+    """V1's cases, as :func:`_cases` gives them, on a scene written to a
+    temporary directory; every version is first checked bit for bit
+    against the plain version, also on the edge rays."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from shacira_tpu_torch.accel import occupancy as occ
+    from shacira_tpu_torch.core.rays import make_rays
+    from shacira_tpu_torch.datasets.rtmv import load_rtmv
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = str(Path(tmp) / 'rtmv')
+        cs.write_rtmv_scene(scene, **cs.V8_SCENE, workers=8)
+        args = cs._nerf_args(cs.v8_argv(dev, scene, tmp, *cs.V8_FLAGS))
+        data = load_rtmv(scene, split='train', mip=args.mip,
+                         max_views=args.max_views)
+    ocfg = occ.OccupancyGridConfig(args.blas_level)
+    I = args.max_intersections
+    rays = cs.v8_rays(data, dev)
+    seeded = occ.occupancy_from_points(ocfg, data.pointcloud, dev)
+    full = occ.occupancy_init(ocfg, dev)
+    edge = make_rays(*(torch.as_tensor(np.concatenate(v), device=dev)
+                       for v in zip(*(cs.dda_edge_rays(k, 512, ocfg.res, i)
+                                      for i, k in enumerate(
+                                          cs.DDA_EDGE_KINDS)))))
+    versions = [k for k in libs if 'voxel_dda' in libs[k]]
+    for state, r in ((seeded, rays), (full, rays), (seeded, edge)):
+        want = occ.voxel_crossings_plain(state, ocfg, r, I)
+        for label in versions:
+            got = _launch_dda(libs[label]['voxel_dda'], state, ocfg, r, I)
+            if not all(torch.equal(got[k], want[k]) for k in want):
+                raise AssertionError(f'V1 {label} differs from the plain '
+                                     'version')
+    return [(name, {label: (lambda st=state, lib=libs[label]['voxel_dda']:
+                            _launch_dda(lib, st, ocfg, rays, I),
+                            None)
+                    for label in versions})
+            for name, state in (('voxel_dda_seeded', seeded),
+                                ('voxel_dda_all_occupied', full))]
+
+
 def _cases(dev, libs):
     """(input name, {label: (launch, plain)}): zero-argument closures; a
     plain of None skips the check."""
     from shacira_tpu_torch.ops import paged_hash as ph
     from shacira_tpu_torch.ops import scatter
-    versions = [k for k in libs if k != NO_LOADS]
+    versions = [k for k in libs if k != NO_LOADS and 'scatter' in libs[k]]
     cases = []
     for name, fargs in cs.scatter_inputs(dev).items():
         plain = (lambda a=fargs: scatter.scatter_add_plain(*a))
@@ -117,7 +193,7 @@ def _cases(dev, libs):
 
     def gather(args, st, occ):
         launch = {}
-        for label in libs:
+        for label in (k for k in libs if 'paged_hash' in libs[k]):
             use_occ = occ if label != 'baseline' else None
             use_st = st if use_occ is not None else static
             launch[label] = (
@@ -145,6 +221,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--baseline', default=None,
                     help='root of another checkout to time against')
+    ap.add_argument('--only', choices=('b', 'v1'), default=None,
+                    help='time only B1-B3 or only V1 (default: all)')
     ap.add_argument('--out', default=None, help='also write the JSON here')
     args = ap.parse_args(argv)
 
@@ -152,13 +230,19 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print('compare_kernels: no CUDA device', file=sys.stderr)
         return 1
-    libs, paths = _build(args.baseline)
-    sass = {label: sass_counts(path) for label, path in paths.items()}
+    libs, paths = _build(args.baseline, args.only)
+    sass = {label: {kernel: n for name, lib in libs_.items()
+                    if name in ('paged_hash', 'voxel_dda')
+                    for kernel, n in sass_counts(lib).items()}
+            for label, libs_ in paths.items()}
     print(json.dumps({'sass': sass}), flush=True)
     dev = torch.device('cuda')
 
     rows = []
-    for name, fns in _cases(dev, libs):
+    cases = [] if args.only == 'v1' else _cases(dev, libs)
+    if args.only != 'b':
+        cases += _dda_cases(dev, libs)
+    for name, fns in cases:
         row = {'input': name, 'ms': {}, 'max_rel_err': {}}
         for label, (launch, plain) in fns.items():
             if plain is None:
@@ -182,6 +266,9 @@ def main(argv=None) -> int:
         for label in order:
             row['ms'].setdefault(label, []).append(
                 cs.time_ms(fns[label][0], reps))
+            if name.startswith('voxel_dda'):
+                row.setdefault('device_ms', {}).setdefault(label, []).append(
+                    cs.graph_ms(fns[label][0], reps))
         rows.append(row)
         print(json.dumps(row), flush=True)
     card = cs.card_line()

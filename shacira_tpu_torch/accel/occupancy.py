@@ -6,9 +6,10 @@ a depth point cloud (RTMV), the ``'ray'`` march and the ``'voxel'`` march.
 Every random draw (march jitter, prune points) is an argument.
 
 The voxel march's DDA walk (:func:`voxel_crossings`) is kernel V1
-(``csrc/voxel_dda.cu``, one thread a ray) on a CUDA tensor and the plain
-step loop :func:`voxel_crossings_plain` on a CPU tensor; the JAX package
-runs it as a ``lax.scan``, which has no Pallas kernel.
+(``csrc/voxel_dda.cu``, a walker and a recorder warp per 32 rays) on a
+CUDA tensor and the plain step loop :func:`voxel_crossings_plain` on a
+CPU tensor; the JAX package runs it as a ``lax.scan``, which has no
+Pallas kernel.
 """
 from __future__ import annotations
 

@@ -3,7 +3,9 @@ plain version ``accel/occupancy.voxel_crossings_plain``, without the JAX
 package (so that the tests marked ``cuda`` run on the card's machine,
 which has no JAX): the single-rounding product-sum both compute, the
 walk's stopping rule, and the kernel against the plain version on the
-card, ``valid`` and the depths equal.
+card, ``valid`` and the depths equal, on ray sets that reach every path of
+its walk (``chip_smoke.dda_edge_rays``: rays on cell faces, edges and
+corners, stalling rays, empty box intervals).
 """
 from fractions import Fraction
 
@@ -12,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip('torch')
 
+import chip_smoke  # noqa: E402
 from shacira_tpu_torch.accel import occupancy as tocc  # noqa: E402
 from shacira_tpu_torch.core.rays import make_rays  # noqa: E402
 
@@ -96,19 +99,48 @@ def cuda_device():
     return torch.device('cuda')
 
 
+def _card_rays(kind: str, n: int, level: int):
+    """(origins, dirs, dist_min, dist_max) numpy: 'mixed' is n - n // 5
+    rays aimed into the box and n // 5 with exactly zero direction
+    components, at distance bounds [0, 6]; other kinds are
+    ``chip_smoke.dda_edge_rays`` families."""
+    if kind != 'mixed':
+        return chip_smoke.dda_edge_rays(kind, n, 2 ** level, seed=level)
+    o, d = _rays(n - n // 5, seed=level)
+    o2, d2 = _rays(n // 5, seed=level + 7, axis_aligned=True)
+    return (np.concatenate([o, o2]), np.concatenate([d, d2]),
+            np.zeros(n, np.float32), np.full(n, 6.0, np.float32))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('level,density,I', [(4, 1.0, 8), (5, 0.2, 32),
-                                             (7, 0.05, 64), (7, 1.0, 64)])
-def test_dda_kernel_matches_plain_on_card(cuda_device, level, density, I):
-    """Kernel V1 against the plain loop: ``valid`` and the depths equal
-    (one thread walks the same arithmetic)."""
-    o, d = _rays(2048, seed=level)
-    o2, d2 = _rays(512, seed=level + 7, axis_aligned=True)
-    o, d = np.concatenate([o, o2]), np.concatenate([d, d2])
+@pytest.mark.parametrize('level,density,I,kind,n', [
+    pytest.param(4, 1.0, 8, 'mixed', 2560, id='4-1.0-8'),
+    pytest.param(5, 0.2, 32, 'mixed', 2560, id='5-0.2-32'),
+    pytest.param(7, 0.05, 64, 'mixed', 2560, id='7-0.05-64'),
+    pytest.param(7, 1.0, 64, 'mixed', 2560, id='7-1.0-64'),
+    # ray counts off the block: a lone ray, a warp and one, 4096 + 1
+    pytest.param(7, 0.05, 64, 'mixed', 1, id='one-ray'),
+    pytest.param(5, 0.3, 16, 'mixed', 33, id='33-rays'),
+    pytest.param(7, 0.05, 64, 'mixed', 4097, id='4097-rays'),
+    # the I-th crossing inside a look-ahead batch; I past the staged slots
+    pytest.param(5, 0.5, 1, 'mixed', 2560, id='I-1'),
+    pytest.param(5, 0.5, 3, 'mixed', 2560, id='I-3'),
+    pytest.param(7, 1.0, 100, 'mixed', 1024, id='I-100'),
+    # rays that start on a face, an edge or a corner, cross corners, stall
+    # on direction components in (-1e-9, 0], or miss the box
+    *(pytest.param(7, 0.3, 16, kind, 999, id=kind)
+      for kind in chip_smoke.DDA_EDGE_KINDS)])
+def test_dda_kernel_matches_plain_on_card(cuda_device, level, density, I,
+                                          kind, n):
+    """Kernel V1 against the plain loop: ``valid`` and the depths equal bit
+    for bit, on ray sets and slot counts that reach every path of its walk
+    (look-ahead batches cut by the stop, steps on cell faces, edges and
+    corners, stalls, staged and direct slots, a partial last block)."""
+    o, d, dmin, dmax = _card_rays(kind, n, level)
     cfg = tocc.OccupancyGridConfig(level)
     occ_t = torch.as_tensor(_grid(level, density, seed=3), device=cuda_device)
-    rays = make_rays(torch.as_tensor(o, device=cuda_device),
-                     torch.as_tensor(d, device=cuda_device), 0.0, 6.0)
+    rays = make_rays(*(torch.as_tensor(v, device=cuda_device)
+                       for v in (o, d, dmin, dmax)))
     before = tocc.voxel_crossings.launches
     got = tocc.voxel_crossings({'occ': occ_t}, cfg, rays, I)
     want = tocc.voxel_crossings_plain({'occ': occ_t}, cfg, rays, I)
@@ -117,7 +149,7 @@ def test_dda_kernel_matches_plain_on_card(cuda_device, level, density, I):
     assert torch.equal(got['valid'], want['valid'])
     assert torch.equal(got['entries'], want['entries'])
     assert torch.equal(got['exits'], want['exits'])
-    assert int(got['valid'].sum()) > 0
+    assert (int(got['valid'].sum()) > 0) == (kind != 'empty')
 
 
 @pytest.mark.cuda

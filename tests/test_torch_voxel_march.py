@@ -19,6 +19,7 @@ jax = pytest.importorskip('jax')
 torch = pytest.importorskip('torch')
 import jax.numpy as jnp  # noqa: E402
 
+import chip_smoke  # noqa: E402
 from shacira_tpu.accel import occupancy as jocc  # noqa: E402
 from shacira_tpu.core.rays import make_rays as jmake_rays  # noqa: E402
 from shacira_tpu_torch.accel import occupancy as tocc  # noqa: E402
@@ -78,16 +79,27 @@ def _check_crossings(got, want):
 
 @pytest.mark.parametrize('kind,level,density,I', [
     ('random', 4, 0.3, 16), ('random', 5, 0.15, 32), ('axis', 4, 0.3, 16),
-    ('miss', 4, 1.0, 8), ('inside', 5, 0.2, 24), ('random', 7, 0.05, 64)])
+    ('miss', 4, 1.0, 8), ('inside', 5, 0.2, 24), ('random', 7, 0.05, 64),
+    # the I-th crossing early in a walk
+    ('random', 5, 0.5, 1), ('random', 5, 0.5, 3),
+    # chip_smoke.dda_edge_rays: origins on cell faces, edges and corners,
+    # corner-crossing diagonals, stalling directions, empty box intervals
+    ('face', 5, 0.3, 16), ('edge', 5, 0.3, 3), ('corner', 7, 0.05, 64),
+    ('diagonal', 5, 0.3, 16), ('stall', 4, 0.5, 16), ('empty', 4, 1.0, 8)])
 def test_voxel_crossings_match_jax(kind, level, density, I):
-    o, d = _rays(kind, 96, seed=level)
+    if kind in chip_smoke.DDA_EDGE_KINDS:
+        o, d, *dist = chip_smoke.dda_edge_rays(kind, 96, 2 ** level,
+                                               seed=level)
+    else:
+        (o, d), dist = _rays(kind, 96, seed=level), (0.0, 6.0)
     occ_np = _grid(level, density, seed=level + 1)
-    jcfg, tcfg, jstate, tstate, jrays, trays = _both(o, d, occ_np, level)
+    jcfg, tcfg, jstate, tstate, jrays, trays = _both(o, d, occ_np, level,
+                                                     tuple(dist))
     want = jax.jit(lambda r: jocc.voxel_crossings(jstate, jcfg, r, I))(jrays)
     got = tocc.voxel_crossings(tstate, tcfg, trays, I)
     _check_crossings(got, want)
     n = got['valid'].sum(dim=1)
-    if kind == 'miss':
+    if kind in ('miss', 'empty'):
         assert int(n.max()) == 0
         assert float(got['entries'].abs().max()) == 0.0
     else:
