@@ -115,7 +115,29 @@ Phases, each of which must pass (exit code 1 otherwise):
                config reader on the lego-like Blender scene, 210 steps
                across two prunes, budgets and probed live crossings logged
                after each, profiled after the second, one view evaluated;
-               B1(b), B2, B3 and V1 every step.
+               B1(b), B2, B3 and V1 every step;
+19. octree_rtmv -- ``apps/train_nerf.main`` with configs/nerf_octree.yaml
+               (NGLOD) on that RTMV scene, the octree of LODs 5-8 built on
+               the card from the depth point cloud (queries outside it
+               give -1 and zero features), 104 steps across a prune at 100,
+               then ``--valid-only`` as in phase 17; B1 every step;
+20. backbones -- B1 at the alternative backbones' shapes (NGLOD's corner
+               features, F = 5, and VQAD's corner logits, F = 16, of the
+               dense 4096 x 1024-sample march into the 19,431,844 corners
+               of the dense octree of LODs 5-8; the triplanar texels of
+               1,048,576 samples, F = 4, into 264,012 rows; the HashGrid
+               backward, 16 LODs, F = 2), checked and timed as in phase 2;
+               then the app with configs/nerf_octree.yaml,
+               nerf_codebook.yaml, nerf_triplanar.yaml (with --max-samples
+               1048576, its one cut) and nerf_hash.yaml at full width on
+               the Blender-format scene of phase 10 (40 + 1 views), 104
+               steps each across a prune at 100 (``BACKBONE_FLAGS``), then
+               ``--valid-only`` (its PSNR equal to the trained run's to
+               1e-4 dB); the dense octree built once for NGLOD and VQAD,
+               its build time printed; each run's step time, device busy
+               time, idle share, stream syncs a step, peak memory and size
+               report; B1 every step on every path, V1 on the triplanar
+               path.
 
 The second-to-last lines are the card's name and power limit and the
 kernels JSON; the last line is the result JSON.  Exits non-zero without
@@ -2334,6 +2356,338 @@ def phase_voxel(dev, tmp):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The alternative backbones: NGLOD, VQAD, triplanar, the uncompressed HashGrid
+# ---------------------------------------------------------------------------
+
+BACKBONE_SCENE = dict(views=40, val_views=1, res=128)
+# 4 epochs of 26 views: 104 steps across the prune at 100.  The octree,
+# codebook and triplanar YAMLs inherit prune_every -1 from nerf_base.yaml,
+# so the prune cadence of nerf_hash.yaml (100) is given to all four.
+BACKBONE_FLAGS = ['--epochs', '4', '--max-views', '26', '--prune-every',
+                  '100']
+# (path name, YAML, extra flags): the triplanar YAML's 'voxel' march of
+# 4096 x 64 x 512 samples runs through the trainer's compaction at lego's
+# budget, its one cut
+BACKBONE_RUNS = (('octree', 'nerf_octree.yaml', []),
+                 ('codebook', 'nerf_codebook.yaml', []),
+                 ('triplanar', 'nerf_triplanar.yaml',
+                  ['--max-samples', '1048576']),
+                 ('hash', 'nerf_hash.yaml', []))
+BACKBONE_TIMED_STEPS = 5
+
+
+def backbone_argv(dev, config, scene, log_dir, name, *extra):
+    return ['--config', os.path.join(ROOT, 'configs', config), '--device',
+            str(dev), '--dataset-path', scene, '--log-dir', log_dir,
+            '--exp-name', name, *BACKBONE_FLAGS, *extra]
+
+
+def structures_built_once(seconds):
+    """``OctreeStructure.make_dense`` wrapped so that each dense structure
+    is built once (its build seconds kept in ``seconds``) and handed to
+    every later trainer, and ``from_pointcloud`` timed; returns the
+    function that puts both back."""
+    import torch
+    from shacira_tpu_torch.models.grids import octree_grid as og
+    cls = og.OctreeStructure
+    dense, points = cls.make_dense, cls.from_pointcloud
+    cache = {}
+
+    def timed(key, build):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = build()
+        torch.cuda.synchronize()
+        seconds.setdefault(key, []).append(time.perf_counter() - t0)
+        return out
+
+    def make_dense(cfg, device='cpu'):
+        key = f'dense LODs {cfg.active_lods}'
+        if key not in cache:
+            cache[key] = timed(key, lambda: dense(cfg, device=device))
+        return cache[key]
+
+    def from_pointcloud(cfg, pts, dilate=2, device=None):
+        return timed(f'point cloud LODs {cfg.active_lods}',
+                     lambda: points(cfg, pts, dilate=dilate, device=device))
+
+    cls.make_dense = staticmethod(make_dense)
+    cls.from_pointcloud = staticmethod(from_pointcloud)
+
+    def restore():
+        cls.make_dense = classmethod(dense.__func__)
+        cls.from_pointcloud = classmethod(points.__func__)
+    return restore
+
+
+def backbone_scatter_inputs(dev):
+    """B1's inputs at the backbone steps' shapes, name -> (idx int32 [N],
+    vals [N, F] f32, table rows, use), on samples along rays in (ray,
+    depth) order (``ray_ordered_points``), samples outside the march's
+    mask with zero gradients, the rows of every LOD (plane) offset into one
+    row space in the order ``gather_rows`` concatenates them:
+
+    * ``scatter_add_octree``: NGLOD's corner features, the dense 'ray'
+      march of 4096 x 1024 samples, 4 LODs x 8 corners, F = 5, into the
+      19,431,844 corners of the dense octree of LODs 5-8;
+    * ``scatter_add_codebook``: VQAD's corner logits, the same rows at
+      F = 16;
+    * ``scatter_add_triplanar``: the triplanar texels of the 1,048,576
+      compacted samples, 4 LODs x 3 planes x 4 texels, F = 4, into 264,012
+      rows;
+    * ``scatter_add_hash``: the HashGrid backward (B1(a)) of the dense
+      march, 16 LODs x 8 corners, F = 2, into its 6,098,925-row table."""
+    import torch
+    from shacira_tpu_torch.models.grids import octree_grid as og
+    from shacira_tpu_torch.models.grids import triplanar_grid as tg
+    from shacira_tpu_torch.ops import hashgrid
+    from shacira_tpu_torch.ops.hashgrid import (
+        HashGridSpec, geometric_resolutions)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {}
+    n_dense = 4096 * 1024
+    pts, valid = ray_ordered_points(dev, gen, n_rays=4096, steps=1024,
+                                    budget=n_dense)
+    cfg = og.OctreeGridConfig(feature_dim=5, base_lod=5, num_lods=4)
+    st = og.OctreeStructure.make_dense(cfg, device=dev)
+    idx, rows = [], 0
+    for lod, (ci, _, _) in zip(cfg.active_lods, og._corners(cfg, st, pts)):
+        idx.append(ci.reshape(-1).long() + rows)
+        rows += st.num_corners[lod]
+    idx = torch.cat(idx).to(torch.int32)
+    mask = valid[None, :, None].expand(cfg.num_lods, n_dense, 8).reshape(-1)
+    use = ('backward of the gather {} (JAX: the XLA scatter of jnp.take\'s '
+           'transpose), shacira_tpu/models/grids/octree_grid.py:{}')
+    for name, f, what, line in (
+            ('scatter_add_octree', 5, 'of NGLOD\'s corner features', 152),
+            ('scatter_add_codebook', 16, 'of VQAD\'s corner logits', 196)):
+        vals = torch.randn((idx.shape[0], f), generator=gen, device=dev)
+        out[name] = (idx, vals * mask[:, None], rows, use.format(what, line))
+        del vals
+    del idx, mask
+    spec = HashGridSpec(geometric_resolutions(16, 2048, 16), 19, 3)
+    gidx, _ = hashgrid._all_corners(pts, spec)
+    vals = torch.randn(gidx.shape + (2,), generator=gen, device=dev)
+    vals = vals * valid[None, :, None, None]
+    out['scatter_add_hash'] = (
+        gidx.reshape(-1), vals.reshape(-1, 2), spec.total_size,
+        'HashGrid (Instant-NGP) backward of configs/nerf_hash.yaml, '
+        'shacira_tpu/ops/hashgrid.py:471')
+    del pts, valid, gidx, vals
+    pts, valid = ray_ordered_points(dev, gen, n_rays=4096, steps=256,
+                                    budget=1 << 20)
+    tcfg = tg.TriplanarGridConfig(feature_dim=4, base_lod=5, num_lods=4)
+    idx, rows = [], 0
+    for lod in tcfg.active_lods:
+        s = 2 ** lod + 1
+        for _, axes in tg.PLANES:
+            r, _, _ = tg._plane_texels(s, pts[:, list(axes)])
+            idx.append(r.reshape(-1) + rows)
+            rows += s * s
+    idx = torch.cat(idx).to(torch.int32)
+    vals = torch.randn((idx.shape[0], 4), generator=gen, device=dev)
+    mask = valid[:, None].expand(-1, 4).reshape(-1).repeat(12)
+    out['scatter_add_triplanar'] = (
+        idx, vals * mask[:, None], rows,
+        'backward of the gather of the triplanar texels (JAX: the XLA '
+        'scatter of the plane indexing), '
+        'shacira_tpu/models/grids/triplanar_grid.py:61')
+    return out
+
+
+def phase_backbone_kernels(dev):
+    """B1 at the backbone shapes (``backbone_scatter_inputs``) against its
+    plain version and index_add_, timed, with its bound and merge
+    counts."""
+    import torch
+    from shacira_tpu_torch.ops import scatter
+    rows = {}
+    inputs = backbone_scatter_inputs(dev)
+    for name in list(inputs):
+        idx, vals, table_rows, use = inputs.pop(name)
+        rows[name] = check_scatter(name, idx, vals, table_rows,
+                                   scatter.scatter_add,
+                                   scatter.scatter_add_plain, reps=3)
+        rows[name].update(use=use, source='shacira_tpu_torch/csrc/scatter.cu',
+                          replaces='shacira_tpu/ops/pallas_scatter.py:29')
+        del idx, vals
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _drive_backbone(dev, name, argv, data, n_steps):
+    """The app's ``main`` on ``argv`` (training across the prunes), then
+    ``--resume true --valid-only``, whose PSNR must equal the trained
+    run's to 1e-4 dB; counts zeroed before training and read after it; the
+    step timed and profiled outside the app on a fresh trainer.  Returns
+    (result, launches)."""
+    import logging
+
+    import torch
+    from shacira_tpu_torch.apps import train_nerf
+    from shacira_tpu_torch.apps.train_nerf import build_trainer
+    from shacira_tpu_torch.trainers.multiview_trainer import MultiviewTrainer
+    args = _nerf_args(argv)
+    want_prunes = list(range(args.prune_every, n_steps + 1,
+                             args.prune_every))
+    lines, starts, prunes = [], [], []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    logger = logging.getLogger('shacira_tpu_torch')
+    logger.addHandler(handler)
+    fn_train, fn_prune = MultiviewTrainer.train, MultiviewTrainer.prune
+
+    def train(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn_train(self, *a, **k)
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter() - t0)
+        return out
+
+    def prune(self, *a, **k):
+        fn_prune(self, *a, **k)
+        prunes.append({'iteration': self.iteration, 'occupancy': float(
+            self.occ_state['occ'].float().mean())})
+
+    MultiviewTrainer.train, MultiviewTrainer.prune = train, prune
+    exp = os.path.join(args.log_dir, name)
+    try:
+        metrics, logs, walls = {}, {}, {}
+        for run, extra in (('train', []),
+                           ('valid-only', ['--resume', 'true',
+                                           '--valid-only'])):
+            del lines[:]
+            if run == 'train':
+                _reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if train_nerf.main(argv + extra) != 0:
+                raise AssertionError(f'{name} app run {run} failed')
+            torch.cuda.synchronize()
+            walls[run] = time.perf_counter() - t0
+            if run == 'train':
+                launches = _launch_counts()
+                app_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            with open(os.path.join(exp, 'metrics.json')) as f:
+                metrics[run] = json.load(f)
+            logs[run] = list(lines)
+    finally:
+        MultiviewTrainer.train, MultiviewTrainer.prune = fn_train, fn_prune
+        logger.removeHandler(handler)
+    m = metrics['train']
+    steps = [ln for ln in logs['train'] if ln.startswith('iteration ')]
+    size = {k: v for k, v in m.items() if k.endswith('_kb') or k == 'stream'}
+    for run, mm in metrics.items():
+        if not all(math.isfinite(mm[k]) for k in ('psnr', 'ssim',
+                                                   'total_size_kb')):
+            raise AssertionError(f'{name} {run}: non-finite metrics {mm}')
+    if [p['iteration'] for p in prunes] != want_prunes or not any(
+            ln.startswith(f'iteration {n_steps} ') for ln in steps):
+        raise AssertionError(f'{name}: not {n_steps} steps across the '
+                             f'prunes at {want_prunes}: {prunes}, {steps}')
+    if ('valid-only: loaded model_best.ckpt' not in logs['valid-only']
+            or any(ln.startswith('iteration ') for ln in logs['valid-only'])):
+        raise AssertionError(f'{name} --valid-only did not reload without '
+                             'training')
+    diff = abs(metrics['valid-only']['psnr'] - m['psnr'])
+    for f in ('metrics.json', 'model_best.ckpt', 'resume_state.ckpt',
+              'val_view0.png', 'turntable.gif'):
+        if not os.path.exists(os.path.join(exp, f)):
+            raise AssertionError(f'the {name} app wrote no {f}')
+    fresh = build_trainer(args, data)
+    fresh.train(num_iterations=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.train(num_iterations=BACKBONE_TIMED_STEPS)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / BACKBONE_TIMED_STEPS * 1e3
+    prof = phase_profile(fresh, 3, f'{name}, before the first prune',
+                         step_ms)
+    result = {'path': name, 'wall_s': walls, 'train_seconds': starts[0],
+              'mean_step_ms_in_app': starts[0] / n_steps * 1e3,
+              'step_ms': step_ms,
+              'device_busy_ms_per_step': prof['device_busy_ms_per_step'],
+              'device_idle_share': prof['device_idle_share'],
+              'stream_syncs_per_step': prof['stream_syncs_per_step'],
+              'app_peak_mem_gb': app_peak_gb, 'prunes': prunes,
+              'psnr': m['psnr'], 'ssim': m['ssim'],
+              'valid_only_psnr': metrics['valid-only']['psnr'],
+              'size_report': size, 'launches': launches,
+              'training_log': steps}
+    log(f'  {name}: ' + json.dumps(result))
+    log(f'  {name} --valid-only PSNR - trained PSNR: {diff:.3e} dB')
+    if not diff <= 1e-4:
+        raise AssertionError(f'{name} --valid-only did not reproduce the '
+                             'PSNR')
+    if launches['scatter_add'] < n_steps:
+        raise AssertionError(f'{name}: B1 not launched every step: '
+                             f'{launches}')
+    del fresh
+    torch.cuda.empty_cache()
+    return result, launches
+
+
+def phase_backbones(dev, rows) -> dict:
+    """B1 at the backbone shapes (its rows added to ``rows``), then
+    ``apps/train_nerf.main`` with each of ``BACKBONE_RUNS`` at the YAML's
+    full width on the Blender-format scene of
+    ``tools/make_synthetic_data.write_nerf_scene(**BACKBONE_SCENE)``; the
+    dense octree of LODs 5-8 built once for NGLOD and VQAD.  Returns the
+    launches of each path."""
+    import tempfile
+
+    import torch
+    from shacira_tpu_torch.datasets.nerf_synthetic import load_nerf_synthetic
+    from tools.make_synthetic_data import write_nerf_scene
+    seconds = {}
+    restore = structures_built_once(seconds)
+    launches = {}
+    try:
+        rows.update(phase_backbone_kernels(dev))
+        log(f'  structure builds (s): {json.dumps(seconds)}')
+        with tempfile.TemporaryDirectory() as tmp:
+            scene = os.path.join(tmp, 'scene')
+            write_nerf_scene(scene, **BACKBONE_SCENE)
+            for name, config, extra in BACKBONE_RUNS:
+                argv = backbone_argv(dev, config, scene,
+                                     os.path.join(tmp, 'runs'), name, *extra)
+                args = _nerf_args(argv)
+                data = load_nerf_synthetic(scene, split='train',
+                                           mip=args.mip,
+                                           max_views=args.max_views)
+                log(f'phase backbones, {name} ({config}):')
+                _, launches[name] = _drive_backbone(
+                    dev, name, argv, data, args.epochs * data.num_views)
+                torch.cuda.empty_cache()
+    finally:
+        restore()
+    log(f'  structure builds (s): {json.dumps(seconds)}')
+    return launches
+
+
+def phase_octree_rtmv(dev, scene, tmp, data):
+    """NGLOD (configs/nerf_octree.yaml) through the app on the generated
+    RTMV scene: the octree built from the scene's depth point cloud (2
+    cells of dilation), so the sparse structure and its queries outside it
+    (-1, zero features) run on the card; as ``_drive_backbone``."""
+    seconds = {}
+    restore = structures_built_once(seconds)
+    try:
+        argv = backbone_argv(dev, 'nerf_octree.yaml', scene,
+                             os.path.join(tmp, 'runs'), 'octree_rtmv',
+                             '--multiview-dataset-format', 'rtmv')
+        args = _nerf_args(argv)
+        result, launches = _drive_backbone(
+            dev, 'octree_rtmv', argv, data, args.epochs * data.num_views)
+    finally:
+        restore()
+    log(f'  structure builds (s): {json.dumps(seconds)}')
+    return launches
+
+
 RANGES = ('step/draws', 'step/recalib', 'step/decode', 'trace/march',
           'trace/group', 'trace/compact', 'field/encode',
           'field/paged_encode', 'field/finish', 'field/head',
@@ -2416,9 +2770,10 @@ def phase_profile(trainer, steps: int, label: str, step_ms: float,
 
 
 def voxel_phases(dev, rows) -> dict:
-    """Phases voxel_kernels, voxel_parity, v8 and voxel, in a temporary
-    directory holding the generated scenes; adds the kernel rows to
-    ``rows`` and returns the launches of the v8 and voxel paths."""
+    """Phases voxel_kernels, voxel_parity, v8, voxel and octree_rtmv, in a
+    temporary directory holding the generated scenes; adds the kernel rows
+    to ``rows`` and returns the launches of the v8, voxel and octree_rtmv
+    paths."""
     import tempfile
 
     import torch
@@ -2447,6 +2802,9 @@ def voxel_phases(dev, rows) -> dict:
         torch.cuda.empty_cache()
         log('phase voxel:')
         launches['voxel'] = phase_voxel(dev, tmp)
+        torch.cuda.empty_cache()
+        log('phase octree_rtmv:')
+        launches['octree_rtmv'] = phase_octree_rtmv(dev, scene, tmp, data)
         torch.cuda.empty_cache()
     return launches
 
@@ -2524,11 +2882,14 @@ def main(argv=None) -> int:
     launches['pearl'] = phase_pearl('cuda')
     torch.cuda.empty_cache()
     launches.update(voxel_phases(dev, rows))
+    log('phase backbones:')
+    launches.update(phase_backbones(dev, rows))
     # each kernel's launches come from the path it serves: B1 from the flat
     # lego run, B2 and B3 from the paged one (which also runs B1(b)), B2
     # with its occupancy row from the 'kernel' run, V1 and B1(a) at V8's
     # width from the v8 run, V1 on a full grid, B1(b), B2 and B3 at ld 2
-    # from the voxel run; launches_by_path adds the other runs
+    # from the voxel run, B1 at each backbone's shapes from its own run;
+    # launches_by_path adds the other runs
     # (row name, wrapper count it reports, path); the ray-ordered row times
     # the same wrapper as scatter_add on the step's sample order
     path_of = (('scatter_add', 'scatter_add', 'lego'),
@@ -2548,7 +2909,11 @@ def main(argv=None) -> int:
                ('scatter_add_v8', 'scatter_add', 'v8'),
                ('segment_sum_voxel', 'segment_sum', 'voxel'),
                ('paged_gather_voxel', 'paged_gather', 'voxel'),
-               ('paged_scatter_voxel', 'paged_scatter', 'voxel'))
+               ('paged_scatter_voxel', 'paged_scatter', 'voxel'),
+               ('scatter_add_octree', 'scatter_add', 'octree'),
+               ('scatter_add_codebook', 'scatter_add', 'codebook'),
+               ('scatter_add_triplanar', 'scatter_add', 'triplanar'),
+               ('scatter_add_hash', 'scatter_add', 'hash'))
     counts = ('updates', 'atomics', 'distinct_per_tile',
               'occupancy_row_mismatches', 'valid_mismatches', 'max_ulps',
               'steps_walked', 'longest_walk', 'us_per_step', 'crossings',
@@ -2582,6 +2947,13 @@ def main(argv=None) -> int:
                                       'paged_scatter', 'voxel_crossings'))):
         missing += [f'{w} ({path} path)' for w in wrappers
                     if launches[path][w] <= 0]
+    # every backbone's feature-table gather runs B1 in its backward; the
+    # triplanar YAML's 'voxel' march runs V1
+    for path in ('octree', 'codebook', 'triplanar', 'hash', 'octree_rtmv'):
+        if launches[path]['scatter_add'] <= 0:
+            missing.append(f'scatter_add ({path} path)')
+    if launches['triplanar']['voxel_crossings'] <= 0:
+        missing.append('voxel_crossings (triplanar path)')
     if missing:
         raise AssertionError(f'kernels not launched on the main path: '
                              f'{missing}')

@@ -1,8 +1,10 @@
 """NeRF training app (PyTorch/CUDA).
 
-Port of ``shacira_tpu/apps/train_nerf.py`` for the latent grid on
-Blender-format or RTMV data (``--multiview-dataset-format rtmv``): loads a
-scene, trains with pruning and periodic
+Port of ``shacira_tpu/apps/train_nerf.py`` for every grid backbone
+(``--grid-type``: LatentGrid, HashGrid, OctreeGrid, CodebookOctreeGrid,
+TriplanarGrid) on Blender-format or RTMV data
+(``--multiview-dataset-format rtmv``): loads a scene, trains with pruning
+and periodic
 validation and resume-state checkpoints (``--save-every``), optionally
 under the profiler (``--profile``), saves ``resume_state.ckpt`` and
 ``model_best.ckpt``, evaluates PSNR, SSIM (and LPIPS with
@@ -140,7 +142,8 @@ def main(argv=None):
 def render_turntable(trainer, args, num_angles: int = None, res: int = None):
     """``num_angles`` frames of a 360-degree turntable (``res`` pixels
     square, default the dataset's size) around the trained field: the
-    codebook decoded once, the field traced in 16,384-ray batches with the
+    codebook decoded once (an alternative backbone in eval mode on the
+    trainer's structure), the field traced in 16,384-ray batches with the
     trainer's tracer config, as the JAX app renders it."""
     if args.overlay_layers:
         raise NotImplementedError('turntable overlay layers are not ported '
@@ -155,10 +158,17 @@ def render_turntable(trainer, args, num_angles: int = None, res: int = None):
                                dist_max=float(d.dist_max))
     mcfg, tcfg = trainer.model_cfg, trainer.tracer_cfg
     params = trainer.params
-    decoded = pipeline.decode_once(params, mcfg.grid)
+    if trainer.is_latent:
+        decoded = pipeline.decode_once(params, mcfg.grid)
 
-    def field_fn(coords, dirs):
-        return nerf_mod.nerf_rgba(params, mcfg, coords, dirs, decoded=decoded)
+        def field_fn(coords, dirs):
+            return nerf_mod.nerf_rgba(params, mcfg, coords, dirs,
+                                      decoded=decoded)
+    else:
+        def field_fn(coords, dirs):
+            return nerf_mod.nerf_rgba(params, mcfg, coords, dirs,
+                                      structure=trainer.structure_tables,
+                                      training=False)
 
     def trace_fn(rays, generator: torch.Generator):
         return rf_tracer.trace(field_fn, trainer.occ_state, mcfg.occ_cfg,

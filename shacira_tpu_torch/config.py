@@ -5,9 +5,10 @@ groups double as YAML sections; a YAML file given with ``--config`` sets
 parser defaults (explicit CLI flags win) with one level of ``parent:``
 inheritance, and an unknown key raises.  The flag surface is the JAX
 package's, so ``configs/kodak.yaml``, ``configs/pearl.yaml``,
-``configs/nerf_base.yaml`` and ``configs/nerf_lego.yaml`` load as they are.
-Options whose code path is not ported yet (other grid types, the NeRF
-app's TensorBoard renders) raise ``NotImplementedError``
+``configs/nerf_base.yaml`` and ``configs/nerf_lego.yaml`` load as they are,
+and so do the other backbones' configs (``nerf_octree``, ``nerf_codebook``,
+``nerf_triplanar``, ``nerf_hash``).  Options whose code path is not ported
+yet (the NeRF app's TensorBoard renders) raise ``NotImplementedError``
 naming their ROADMAP item; ``--rng-impl`` selects a JAX generator and is
 accepted without effect (the port draws from one ``torch.Generator``).
 ``--ldecode-type`` other than 'single' raises too: the JAX apps parse it
@@ -243,23 +244,47 @@ def _not_ported(what: str, item: str):
 
 
 def build_grid_config(args, resolution_dim: int = 3):
-    """LatentGrid config from parsed args ('xor' or 'paged' layout, single
-    decoder, geometric LODs)."""
+    """Grid config from parsed args: ``--grid-type`` picks the backbone as
+    the JAX package does.  LatentGrid (SHACIRA, 'xor' or 'paged' layout,
+    single decoder, geometric or octree LODs); HashGrid (Instant-NGP: the
+    same table with ``latent_dim`` 0 and no latent decoder, whatever the
+    latent_decoder section says); OctreeGrid (NGLOD), CodebookOctreeGrid
+    (VQAD) and TriplanarGrid, 3D only.  The octree structure is built by
+    the trainer."""
     from shacira_tpu_torch.models.grids.latent_grid import LatentGridConfig
-    if args.grid_type != 'LatentGrid':
-        _not_ported(f'grid_type={args.grid_type!r}', 'Queue A item 12')
-    if args.tree_type != 'geometric':
-        _not_ported(f'tree_type={args.tree_type!r}', 'Queue A item 12')
+    grid_type = args.grid_type
+    if grid_type in ('OctreeGrid', 'CodebookOctreeGrid', 'TriplanarGrid'):
+        if resolution_dim != 3:
+            raise ValueError(f'{grid_type} is 3D-only (NeRF/SDF apps)')
+        base = dict(feature_dim=args.feature_dim, base_lod=args.base_lod,
+                    num_lods=args.num_lods,
+                    multiscale_type=args.multiscale_type,
+                    feature_std=args.feature_std,
+                    feature_bias=args.feature_bias)
+        if grid_type == 'OctreeGrid':
+            from shacira_tpu_torch.models.grids.octree_grid import (
+                OctreeGridConfig)
+            return OctreeGridConfig(**base)
+        if grid_type == 'CodebookOctreeGrid':
+            from shacira_tpu_torch.models.grids.octree_grid import (
+                CodebookOctreeGridConfig)
+            return CodebookOctreeGridConfig(
+                codebook_bitwidth=args.codebook_bitwidth, **base)
+        from shacira_tpu_torch.models.grids.triplanar_grid import (
+            TriplanarGridConfig)
+        return TriplanarGridConfig(**base)
+    if grid_type not in ('LatentGrid', 'HashGrid'):
+        raise ValueError(f'Unknown grid_type: {grid_type}')
     if args.ldecode_type != 'single':
         raise NotImplementedError(
             f'ldecode_type={args.ldecode_type!r}: the JAX package\'s apps '
             'parse --ldecode-type but never pass it to with_ldec, so they '
             'always build a single decoder; build the multi and hierarchical '
             'decoders with LatentGridConfig.with_ldec(..., ldecode_type=...)')
-    cfg = LatentGridConfig.from_geometric(
-        feature_dim=args.feature_dim, num_lods=args.num_lods,
-        min_grid_res=args.min_grid_res, max_grid_res=args.max_grid_res,
-        latent_dim=args.latent_dim, multiscale_type=args.multiscale_type,
+    common = dict(
+        feature_dim=args.feature_dim,
+        latent_dim=0 if grid_type == 'HashGrid' else args.latent_dim,
+        multiscale_type=args.multiscale_type,
         resolution_dim=resolution_dim, feature_std=args.feature_std,
         feature_bias=args.feature_bias,
         codebook_bitwidth=args.codebook_bitwidth, init_grid=args.init_grid,
@@ -267,7 +292,14 @@ def build_grid_config(args, resolution_dim: int = 3):
         num_prob_layers=args.num_prob_layers, noise_freq=args.noise_freq,
         entropy_enabled=args.ldecode_enabled and (
             args.entropy_reg > 0 or args.entropy_reg_end > 0))
-    if args.ldecode_enabled:
+    if args.tree_type == 'geometric':
+        cfg = LatentGridConfig.from_geometric(
+            num_lods=args.num_lods, min_grid_res=args.min_grid_res,
+            max_grid_res=args.max_grid_res, **common)
+    else:
+        cfg = LatentGridConfig.from_octree(
+            base_lod=args.base_lod, num_lods=args.num_lods, **common)
+    if args.ldecode_enabled and grid_type != 'HashGrid':
         cfg = cfg.with_ldec(dict(
             norm=args.norm, ldecode_matrix=args.ldecode_matrix,
             use_shift=args.use_shift, num_layers_dec=args.num_layers_dec,

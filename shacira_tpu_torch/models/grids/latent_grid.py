@@ -25,7 +25,7 @@ from shacira_tpu_torch.ops import coding
 from shacira_tpu_torch.ops import paged_hash as ph
 from shacira_tpu_torch.ops.hashgrid import (
     PAGE_RES, HashGridSpec, geometric_resolutions, hash_encode,
-    hash_encode_affine)
+    hash_encode_affine, octree_resolutions)
 from shacira_tpu_torch.models.latent_decoders import (
     HierarchicalLatentDecoderConfig, LatentDecoderConfig,
     MultiLatentDecoderConfig, hierarchical_latent_decoder_apply,
@@ -96,6 +96,11 @@ class LatentGridConfig:
                        **kw):
         res = geometric_resolutions(min_grid_res, max_grid_res, num_lods)
         return cls(feature_dim=feature_dim, resolutions=res, **kw)
+
+    @classmethod
+    def from_octree(cls, feature_dim, base_lod, num_lods, **kw):
+        return cls(feature_dim=feature_dim,
+                   resolutions=octree_resolutions(base_lod, num_lods), **kw)
 
     def with_ldec(self, ldec_kwargs: dict, ldecode_type: str = 'single',
                   **type_kwargs) -> 'LatentGridConfig':

@@ -8,8 +8,11 @@ package does) and return f32.  Pruning updates the dense occupancy grid;
 on the paged layout its density query runs through the block-local kernels
 with a static grouping (:func:`_prune_density_paged`).  The paged encode
 splits in two (:func:`nerf_zbar` on segment rows, :func:`nerf_finish_feats`
-on the compacted rows).  The octree, codebook and triplanar backbones wait
-for ROADMAP Queue A item 12.
+on the compacted rows).  The alternative backbones (:func:`grid_kind`:
+NGLOD's octree grid, VQAD's codebook octree grid, the triplanar grid) take
+the octree structure's tables (``structure``) and ``training`` (VQAD's
+straight-through mix, or its argmax lookup in eval mode); they prune
+through the plain density query.
 """
 from __future__ import annotations
 
@@ -25,14 +28,35 @@ from shacira_tpu_torch.accel import occupancy as occ
 from shacira_tpu_torch.models.embedders import (
     PositionalEmbedderConfig, positional_embed)
 from shacira_tpu_torch.models.grids import latent_grid as lg
+from shacira_tpu_torch.models.grids import octree_grid as og
+from shacira_tpu_torch.models.grids import triplanar_grid as tg
 from shacira_tpu_torch.models.mlp import (
     MLPConfig, mlp_apply, mlp_init, mlp_size_bits)
 from shacira_tpu_torch.ops import paged_hash as ph
 
 
+GRID_CONFIGS = (lg.LatentGridConfig, og.OctreeGridConfig,
+                tg.TriplanarGridConfig)
+
+
+def grid_kind(grid_cfg) -> str:
+    """Backbone family of a grid config: 'latent' (SHACIRA's LatentGrid or
+    the uncompressed HashGrid), 'codebook' (VQAD), 'octree' (NGLOD) or
+    'triplanar'."""
+    if isinstance(grid_cfg, og.CodebookOctreeGridConfig):
+        return 'codebook'
+    if isinstance(grid_cfg, og.OctreeGridConfig):
+        return 'octree'
+    if isinstance(grid_cfg, tg.TriplanarGridConfig):
+        return 'triplanar'
+    return 'latent'
+
+
 @dataclass(frozen=True)
 class NeuralRadianceFieldConfig:
-    grid: lg.LatentGridConfig
+    # LatentGridConfig, OctreeGridConfig, CodebookOctreeGridConfig or
+    # TriplanarGridConfig
+    grid: object
     hidden_dim: int = 128
     num_layers: int = 1
     activation: str = 'relu'
@@ -47,10 +71,8 @@ class NeuralRadianceFieldConfig:
     amp: bool = False
 
     def __post_init__(self):
-        if not isinstance(self.grid, lg.LatentGridConfig):
-            raise NotImplementedError(
-                'only the LatentGrid backbone is ported; octree, codebook '
-                'and triplanar grids are ROADMAP Queue A item 12')
+        if not isinstance(self.grid, GRID_CONFIGS):
+            raise TypeError(f'no grid backbone for {type(self.grid)}')
 
     @property
     def pos_embed_dim(self) -> int:
@@ -92,9 +114,19 @@ class NeuralRadianceFieldConfig:
 
 
 def nerf_init(generator: torch.Generator, cfg: NeuralRadianceFieldConfig,
-              device) -> dict:
-    """Grid, density MLP (first output bias = 1.0) and colour MLP."""
-    grid = lg.latent_grid_init(generator, cfg.grid, device)
+              device, structure=None) -> dict:
+    """Grid, density MLP (first output bias = 1.0) and colour MLP;
+    ``structure`` is the OctreeStructure of the octree and codebook
+    backbones."""
+    kind = grid_kind(cfg.grid)
+    if kind == 'latent':
+        grid = lg.latent_grid_init(generator, cfg.grid, device)
+    elif kind == 'octree':
+        grid = og.octree_grid_init(generator, cfg.grid, structure, device)
+    elif kind == 'codebook':
+        grid = og.codebook_grid_init(generator, cfg.grid, structure, device)
+    else:
+        grid = tg.triplanar_grid_init(generator, cfg.grid, device)
     density = mlp_init(generator, cfg.density_mlp_cfg, device)
     density['layers'][-1]['b'][0] = 1.0
     color = mlp_init(generator, cfg.color_mlp_cfg, device)
@@ -112,13 +144,24 @@ def nerf_feats(params: dict, cfg: NeuralRadianceFieldConfig,
                coords: torch.Tensor, *, use_sga: bool = False,
                temperature: float = 1.0, sga_u: Optional[torch.Tensor] = None,
                decoded: Optional[torch.Tensor] = None,
-               affine=None, lod_mask: Optional[torch.Tensor] = None
-               ) -> torch.Tensor:
+               affine=None, lod_mask: Optional[torch.Tensor] = None,
+               structure=None, training: bool = True) -> torch.Tensor:
     """Grid features (``lod_mask`` applied) + positional embedding at
-    coords."""
-    feats = lg.interpolate(params['grid'], cfg.grid, coords, use_sga=use_sga,
-                           temperature=temperature, sga_u=sga_u,
-                           decoded=decoded, affine=affine, lod_mask=lod_mask)
+    coords; ``structure`` and ``training`` serve the alternative
+    backbones, which take no ``lod_mask``."""
+    kind = grid_kind(cfg.grid)
+    if kind == 'octree':
+        feats = og.interpolate(params['grid'], cfg.grid, structure, coords)
+    elif kind == 'codebook':
+        feats = og.codebook_interpolate(params['grid'], cfg.grid, structure,
+                                        coords, training=training)
+    elif kind == 'triplanar':
+        feats = tg.interpolate(params['grid'], cfg.grid, coords)
+    else:
+        feats = lg.interpolate(params['grid'], cfg.grid, coords,
+                               use_sga=use_sga, temperature=temperature,
+                               sga_u=sga_u, decoded=decoded, affine=affine,
+                               lod_mask=lod_mask)
     if cfg.pos_embed_dim:
         feats = torch.cat([feats, _pos_embed(cfg, coords)], dim=-1)
     return feats
@@ -250,6 +293,8 @@ def _prune_density_paged(params: dict, cfg: NeuralRadianceFieldConfig,
 
 
 def _can_prune_paged(cfg: NeuralRadianceFieldConfig) -> bool:
+    if grid_kind(cfg.grid) != 'latent':
+        return False
     res = cfg.occ_cfg.res
     gr = ph.group_res_of(cfg.grid.spec.page_res)
     return (cfg.grid.spec.hash_layout == 'paged'
@@ -259,17 +304,19 @@ def _can_prune_paged(cfg: NeuralRadianceFieldConfig) -> bool:
 
 @torch.no_grad()
 def prune(params: dict, cfg: NeuralRadianceFieldConfig, occ_state: dict,
-          u: torch.Tensor) -> dict:
-    """One NGP pruning step: the field's eval-mode (rounded-latent) density
-    at one jittered point per cell (``u``: [num_cells, 3] U(0,1); raster
-    cell order, or grouped order when the paged prune applies, see
+          u: torch.Tensor, structure=None) -> dict:
+    """One NGP pruning step: the field's eval-mode (rounded-latent, or
+    with ``structure`` the alternative backbone's eval-mode) density at one
+    jittered point per cell (``u``: [num_cells, 3] U(0,1); raster cell
+    order, or grouped order when the paged prune applies, see
     :func:`_can_prune_paged`), max with the decayed tracked density,
     threshold."""
     if _can_prune_paged(cfg):
         density = _prune_density_paged(params, cfg, u)
     else:
         pts = occ.cell_centers_jittered(cfg.occ_cfg, u)
-        density = nerf_density(params, cfg, pts)[..., 0]
+        density = nerf_density(params, cfg, pts, structure=structure,
+                               training=False)[..., 0]
     return occ.prune_update(occ_state, cfg.occ_cfg, density,
                             density_decay=cfg.prune_density_decay,
                             min_density=cfg.prune_min_density)

@@ -159,6 +159,11 @@ def geometric_resolutions(min_grid_res: int, max_grid_res: int,
                  for l in range(num_lods))
 
 
+def octree_resolutions(base_lod: int, num_lods: int) -> Tuple[int, ...]:
+    """Power-of-two LOD progression ``2^(base_lod + l)``."""
+    return tuple(2 ** (base_lod + l) for l in range(num_lods))
+
+
 def _cell_and_frac(coords: torch.Tensor, res: int):
     """Cell position [N, dim] int64 and fraction [N, dim] f32."""
     x = torch.clamp(res * (coords.float() * 0.5 + 0.5), 0.0, res - 1 - 1e-5)

@@ -14,6 +14,12 @@ merge).  Both uses of the JAX package's scatter run through it:
 * :func:`segment_sum` -- the per-ray sums of the compact volume integration
   (``tracers/rf_tracer.py``); its backward is a gather.
 
+:func:`gather_rows` is the feature-table gather of the alternative grid
+backbones (NGLOD corner features, VQAD corner logits, triplanar plane
+texels): its backward is the same scatter, one launch over the tables of
+every LOD (and plane) in one row space with offsets.  The JAX package does
+that scatter in XLA outside any Pallas kernel.
+
 Dispatch: a CPU tensor takes the plain PyTorch version beside the kernel;
 a CUDA tensor launches the kernel or raises.  There is no fallback.
 
@@ -182,6 +188,63 @@ def segment_sum(idx: torch.Tensor, vals: torch.Tensor,
 
 
 segment_sum.launches = 0
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, n, *tables_and_idx):
+        tables, idxs = tables_and_idx[:n], tables_and_idx[n:]
+        ctx.rows = [t.shape[0] for t in tables]
+        ctx.dtypes = [t.dtype for t in tables]
+        ctx.save_for_backward(*idxs)
+        # an output outside the loss gets None, not a zero-filled gradient
+        ctx.set_materialize_grads(False)
+        return tuple(t[i.long()] for t, i in zip(tables, idxs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        idxs = ctx.saved_tensors
+        rows = ctx.rows
+        offsets = [0]
+        for r in rows[:-1]:
+            offsets.append(offsets[-1] + r)
+        live = [k for k, g in enumerate(grads) if g is not None]
+        if not live:
+            return (None,) * (1 + 2 * len(rows))
+        width = grads[live[0]].shape[-1]
+        flat_idx = [(idxs[k].reshape(-1).long() + offsets[k]).to(torch.int32)
+                    for k in live]
+        vals = [grads[k].float().reshape(-1, width) for k in live]
+        if len(live) > 1:
+            flat_idx, vals = torch.cat(flat_idx), torch.cat(vals)
+        else:
+            flat_idx, vals = flat_idx[0], vals[0]
+        table = scatter_add(flat_idx, vals, sum(rows))
+        del flat_idx, vals
+        out = [None] * len(rows)
+        for k, part in enumerate(torch.split(table, rows)):
+            if k in live:
+                out[k] = part.to(ctx.dtypes[k])
+        return (None, *out, *([None] * len(rows)))
+
+
+def gather_rows(tables, idxs):
+    """``[tables[k][idxs[k]] for k]``: rows of ``[T_k, F]`` tables (one
+    width ``F``) at integer indices of any shape, each ``[*idxs[k].shape,
+    F]``.
+
+    The backward adds every output's gradient rows into one zeroed f32
+    table of ``sum T_k`` rows, table ``k``'s indices offset by the rows
+    before it, with ONE :func:`scatter_add` (kernel B1 on the card), then
+    splits it per table.  Indices must lie in their table."""
+    tables, idxs = list(tables), list(idxs)
+    if len(tables) != len(idxs) or not tables:
+        raise ValueError(f'{len(tables)} tables and {len(idxs)} index '
+                         'tensors')
+    if len({t.shape[-1] for t in tables}) != 1:
+        raise ValueError('tables of one width expected, got '
+                         f'{[tuple(t.shape) for t in tables]}')
+    return list(_GatherRows.apply(len(tables), *tables, *idxs))
 
 
 def reset_launches():

@@ -1,4 +1,5 @@
-"""Multiview (NeRF) trainer: single device, latent grid, flat or paged layout.
+"""Multiview (NeRF) trainer: single device, any grid backbone, flat or paged
+layout.
 
 Port of ``shacira_tpu/trainers/multiview_trainer.py``.  The JAX trainer runs
 chunks of steps under ``lax.scan``; here a Python loop runs one eager step
@@ -35,7 +36,12 @@ Semantics kept from the JAX package:
     seeded from the dataset's point cloud; on the paged layout each DDA
     crossing's ``num_steps`` samples form a segment of the paged trace,
     and the adaptive budgets come from the occupied cell fraction and the
-    probed live crossings per ray (:meth:`_live_cell_hits_per_ray`).
+    probed live crossings per ray (:meth:`_live_cell_hits_per_ray`);
+  * the alternative backbones (NGLOD, VQAD, triplanar; ``grid_kind``):
+    the octree structure is built once on the device from the dataset's
+    point cloud, or dense, and passed to every field call; no rate loss,
+    no LOD curricula; evaluation and pruning run them in eval mode (VQAD's
+    argmax lookup) and the size report counts their tables.
 
 Every random draw of a step (SGA uniforms, rate-loss noise, march jitter)
 is a :class:`StepDraws` argument of :meth:`MultiviewTrainer.step`, and the
@@ -67,6 +73,8 @@ from shacira_tpu_torch.core.rays import make_rays
 from shacira_tpu_torch.core.schedulers import DecayScheduler, grow_loss_lods
 from shacira_tpu_torch.device import resolve_device
 from shacira_tpu_torch.models.grids import latent_grid as lg
+from shacira_tpu_torch.models.grids import octree_grid as og
+from shacira_tpu_torch.models.grids import triplanar_grid as tg
 from shacira_tpu_torch.models.latent_decoders import scale_norm, sga_uniform
 from shacira_tpu_torch.models.nefs import nerf as nerf_mod
 from shacira_tpu_torch.models.nefs.nerf import NeuralRadianceFieldConfig
@@ -165,10 +173,28 @@ class MultiviewTrainer:
                  model_cfg: NeuralRadianceFieldConfig,
                  tracer_cfg: rf_tracer.RFTracerConfig, dataset,
                  num_rays: int, seed: int = 0, device=None,
-                 val_dataset=None, log_dir: Optional[str] = None):
+                 val_dataset=None, log_dir: Optional[str] = None,
+                 structure: Optional[og.OctreeStructure] = None):
         self.cfg = cfg
         self.model_cfg = model_cfg
-        if model_cfg.grid.hash_layout == 'paged':
+        self.device = resolve_device(device)
+        self.grid_kind = nerf_mod.grid_kind(model_cfg.grid)
+        self.is_latent = self.grid_kind == 'latent'
+        if not self.is_latent and (cfg.random_lod or cfg.grow_every > 0):
+            raise ValueError(
+                'random_lod / LOD-growth curricula are LatentGrid-only '
+                '(alternative backbones ignore lod_mask)')
+        if self.grid_kind in ('octree', 'codebook') and structure is None:
+            if getattr(dataset, 'pointcloud', None) is not None:
+                structure = og.OctreeStructure.from_pointcloud(
+                    model_cfg.grid, dataset.pointcloud, device=self.device)
+            else:
+                structure = og.OctreeStructure.make_dense(
+                    model_cfg.grid, device=self.device)
+        self.structure = structure
+        self.structure_tables = (structure.tables()
+                                 if structure is not None else None)
+        if self.is_latent and model_cfg.grid.hash_layout == 'paged':
             # segment grouping follows the grid's page geometry
             tracer_cfg = replace(tracer_cfg,
                                  group_res=ph.group_res_of(
@@ -185,7 +211,6 @@ class MultiviewTrainer:
         self.dataset = dataset
         self.val_dataset = val_dataset
         self.num_rays = num_rays
-        self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.np_rng = np.random.RandomState(seed)
@@ -194,12 +219,15 @@ class MultiviewTrainer:
         self.val_best_params = None
 
         gcfg = model_cfg.grid
-        self.ldecode_enabled = gcfg.ldec is not None
+        self.ldecode_enabled = self.is_latent and gcfg.ldec is not None
         self.entropy_enabled = self.ldecode_enabled and gcfg.entropy_enabled
-        self.affine = lg.supports_affine_fusion(gcfg)
+        self.affine = self.is_latent and lg.supports_affine_fusion(gcfg)
         self.set_params(nerf_mod.nerf_init(self.generator, model_cfg,
-                                           self.device))
-        self.noise = torch.zeros_like(self.params['grid']['codebook'])
+                                           self.device, structure))
+        # the rate-loss noise exists for the latent grid only
+        self.noise = (torch.zeros_like(self.params['grid']['codebook'])
+                      if self.is_latent else
+                      torch.zeros((1,), device=self.device))
         self.voxel = tracer_cfg.raymarch_type == 'voxel'
         if getattr(dataset, 'pointcloud', None) is not None:
             # depth-captured scenes (RTMV): the occupancy starts as the
@@ -209,7 +237,7 @@ class MultiviewTrainer:
         else:
             self.occ_state = occ.occupancy_init(model_cfg.occ_cfg,
                                                 self.device)
-        self.use_paged = (gcfg.hash_layout == 'paged' and self.affine
+        self.use_paged = (self.affine and gcfg.hash_layout == 'paged'
                           and (tracer_cfg.segment_size > 0 or self.voxel)
                           and tracer_cfg.eval_seg_budget > 0)
         if tracer_cfg.segment_size > 0:
@@ -323,10 +351,12 @@ class MultiviewTrainer:
                   ) -> StepDraws:
         """Draw one step's randomness from the trainer's generator."""
         gen, dev = self.generator, self.device
-        cb = self.params['grid']['codebook']
-        sga_u = sga_uniform(cb.shape, gen, dev) if use_sga else None
-        noise = None
+        sga_u = noise = None
+        if use_sga:
+            sga_u = sga_uniform(self.params['grid']['codebook'].shape, gen,
+                                dev)
         if self.entropy_enabled:
+            cb = self.params['grid']['codebook']
             if self.cfg.noise_freq == 1 or refresh_noise:
                 self.noise = torch.rand(cb.shape, generator=gen,
                                         device=dev) - 0.5
@@ -356,12 +386,16 @@ class MultiviewTrainer:
                 parts = lg.affine_parts(p['grid'], gcfg, use_sga=use_sga,
                                         temperature=temperature,
                                         sga_u=draws.sga_u)
-            else:
+            elif self.is_latent:
                 decoded = lg.decode_codebook(p['grid'], gcfg, use_sga=use_sga,
                                              temperature=temperature,
                                              sga_u=draws.sga_u)
 
         def field_fn(coords, dirs):
+            if not self.is_latent:
+                return nerf_mod.nerf_rgba(p, mcfg, coords, dirs,
+                                          structure=self.structure_tables,
+                                          training=True)
             if self.affine:
                 return nerf_mod.nerf_rgba(p, mcfg, coords, dirs, affine=parts,
                                           lod_mask=lod_mask)
@@ -417,7 +451,8 @@ class MultiviewTrainer:
             u = torch.rand((ocfg.num_cells, 3), generator=self.generator,
                            device=self.device)
         self.set_occupancy(nerf_mod.prune(self.params, self.model_cfg,
-                                          self.occ_state, u))
+                                          self.occ_state, u,
+                                          structure=self.structure_tables))
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -671,6 +706,12 @@ class MultiviewTrainer:
             parts = lg.affine_parts(params['grid'], mcfg.grid)
             split = self._encode_split(params, parts, lod_mask=lod_mask)
             field_fn = None
+        elif not self.is_latent:
+            # eval mode: VQAD looks its argmax up
+            def field_fn(coords, dirs):
+                return nerf_mod.nerf_rgba(params, mcfg, coords, dirs,
+                                          structure=self.structure_tables,
+                                          training=False)
         else:
             decoded = lg.decode_codebook(params['grid'], mcfg.grid)
 
@@ -734,10 +775,8 @@ class MultiviewTrainer:
         names the one chosen.  The grid is copied to the host once."""
         params = params if params is not None else self.params
         gcfg = self.model_cfg.grid
-        if not isinstance(gcfg, lg.LatentGridConfig):
-            raise NotImplementedError('size of the octree, codebook and '
-                                      'triplanar backbones: ROADMAP Queue A '
-                                      'item 12')
+        if not self.is_latent:
+            return self._backbone_size_report(params, use_codec)
         grid = optim.tree_map(lambda t: t.detach().cpu(), params['grid'])
         has_pm = use_codec and 'prob_model' in grid
         ldec_bits, latent_bits = lg.grid_size_bits(
@@ -761,3 +800,21 @@ class MultiviewTrainer:
                     'remainder_size_kb': rest / 8e3,
                     'total_size_kb': total / 8e3})
         return out
+
+    def _backbone_size_report(self, params: dict, use_codec: bool
+                              ) -> Dict[str, float]:
+        """Sizes in kB of an alternative backbone: VQAD's entropy-coded
+        argmax indices (real codestreams with ``use_codec``) and f32
+        dictionaries, the octree and triplanar tables as f32; the MLPs
+        as stored."""
+        rest = nerf_mod.non_grid_size_bits(params)
+        if self.grid_kind == 'codebook':
+            _, gbits = og.codebook_grid_size_bits(params['grid'],
+                                                  use_codec=use_codec)
+        elif self.grid_kind == 'octree':
+            gbits = og.grid_size_bits(params['grid'])
+        else:
+            gbits = tg.grid_size_bits(params['grid'])
+        return {'grid_size_kb': gbits / 8e3,
+                'remainder_size_kb': rest / 8e3,
+                'total_size_kb': (gbits + rest) / 8e3}

@@ -241,11 +241,16 @@ def test_config_rejects_unknown_keys_and_unported_options(tmp_path):
     bad.write_text('grid:\n    not_an_option: 3\n')
     with pytest.raises(ValueError):
         tconfig.parse_args(tconfig.build_nerf_parser(), ['--config', str(bad)])
-    # other grid backbones (ROADMAP item 12) and TensorBoard renders (14)
+    # an unknown grid type and a 2D octree raise as in the JAX package
+    # (config.py:285-286, :302-303); TensorBoard renders are item 14
+    args = tconfig.parse_args(tconfig.build_nerf_parser(),
+                              ['--grid-type', 'NoSuchGrid'])
+    with pytest.raises(ValueError, match='Unknown grid_type'):
+        tconfig.build_nerf_model_config(args)
     args = tconfig.parse_args(tconfig.build_nerf_parser(),
                               ['--grid-type', 'OctreeGrid'])
-    with pytest.raises(NotImplementedError, match='item 12'):
-        tconfig.build_nerf_model_config(args)
+    with pytest.raises(ValueError, match='3D-only'):
+        tconfig.build_grid_config(args, resolution_dim=2)
     args = tconfig.parse_args(tconfig.build_nerf_parser(),
                               ['--render-tb-every', '5'])
     with pytest.raises(NotImplementedError, match='item 14'):
