@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``shacira_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--prune-every N]
+    python3 chip_smoke.py [--prune-every N] [--log FILE]
 
 Phases, each of which must pass (exit code 1 otherwise):
 
@@ -137,7 +137,19 @@ Phases, each of which must pass (exit code 1 otherwise):
                its build time printed; each run's step time, device busy
                time, idle share, stream syncs a step, peak memory and size
                report; B1 every step on every path, V1 on the triplanar
-               path.
+               path;
+21. sdf     -- the SDF demo (``shacira_tpu_torch.apps.sdf_demo``, the
+               counterpart of tools/run_sdf_demo.py) at its full width:
+               B1 on a real step's NeuralSDF hash backward (163,840 rows of
+               F = 4 into 15,761), checked and timed as in phase 2; 2,000
+               steps on the analytic composite scene's 200,000-point pool
+               (IoU over 8 batches at least 90), the normal, shadow and
+               matcap renders at 256 x 256 (finite; the normal render hits
+               at the centre and not at the corner), each timed; B1 every
+               step; then 3 steps profiled.
+
+Every profile fails the run when its stage ranges hold more than 2 % of
+the busy time beyond it (a negative backward remainder).
 
 The second-to-last lines are the card's name and power limit and the
 kernels JSON; the last line is the result JSON.  Exits non-zero without
@@ -161,8 +173,13 @@ REL_TOL = 1e-5
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
+LOG_FILES = []             # --log: every line also goes there
+
+
 def log(msg):
     print(msg, flush=True)
+    for f in LOG_FILES:
+        print(msg, file=f, flush=True)
 
 
 def card_line() -> str:
@@ -2688,6 +2705,116 @@ def phase_octree_rtmv(dev, scene, tmp, data):
     return launches
 
 
+SDF_ITERS = 2000           # tools/run_sdf_demo.py's default
+SDF_RENDER = (256, 256)
+SDF_IOU_FLOOR = 90.0       # tests/test_sdf.py's convergence bar
+SDF_SHADINGS = ('normal', 'shadow', 'matcap')
+
+
+def sdf_scatter_input(dev, ds):
+    """B1's input on the SDF path: the table-gradient scatter of one real
+    step of the demo's config on a batch of its pool (4096 points x 5 LODs
+    x 8 corners, F = 4, into the 15,761-row table), recorded where the
+    hash encode's backward calls it."""
+    from shacira_tpu_torch.apps import sdf_demo
+    from shacira_tpu_torch.ops import hashgrid
+    calls = []
+    launch = hashgrid.scatter_add
+
+    def recording(idx, vals, table_size):
+        calls.append((idx.detach().clone(), vals.detach().clone(),
+                      table_size))
+        return launch(idx, vals, table_size)
+
+    hashgrid.scatter_add = recording
+    try:
+        tr = sdf_demo.build_trainer(ds, device=dev)
+        coords, sdfs = tr.draw_chunk(1)
+        tr.step(coords[0], sdfs[0], tr.lod_masks(tr.loss_lods))
+    finally:
+        hashgrid.scatter_add = launch
+    (idx, vals, rows), = calls
+    return idx, vals, rows
+
+
+def phase_sdf(dev, rows) -> dict:
+    """The SDF demo (``shacira_tpu_torch.apps.sdf_demo``, the counterpart
+    of ``tools/run_sdf_demo.py``) at its full width on the card: B1 on a
+    real step's backward against its plain version and index_add_ (its row
+    added to ``rows``); ``SDF_ITERS`` steps from the demo's functions, the
+    IoU over 8 batches (at least ``SDF_IOU_FLOOR``), the three shadings at
+    ``SDF_RENDER`` (finite; the normal render hits at the centre and not
+    at the corner); counts zeroed before training and read after the
+    renders; then 3 steps profiled.  Returns the path's launches."""
+    import torch
+    from shacira_tpu_torch.apps import sdf_demo
+    from shacira_tpu_torch.ops import scatter
+    t0 = time.perf_counter()
+    ds = sdf_demo.build_dataset()
+    log(f'  dataset: {ds.pool_size} points in '
+        f'{time.perf_counter() - t0:.2f} s')
+    idx, vals, table_rows = sdf_scatter_input(dev, ds)
+    row = check_scatter('scatter_add_sdf', idx, vals, table_rows,
+                        scatter.scatter_add, scatter.scatter_add_plain,
+                        reps=20)
+    row.update(use='NeuralSDF hash backward of the SDF demo (4096 points, '
+                   '5 LODs, F = 4)',
+               source='shacira_tpu_torch/csrc/scatter.cu',
+               replaces='shacira_tpu/ops/pallas_scatter.py:29')
+    rows['scatter_add_sdf'] = row
+    del idx, vals
+    trainer = sdf_demo.build_trainer(ds, device=dev)
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    trainer.train(num_iterations=SDF_ITERS, log_fn=losses.append)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    iou = trainer.validate(num_batches=8)['iou']
+    tex = np.broadcast_to(np.asarray([0.2, 0.6, 0.9], np.float32),
+                          (8, 8, 3)).copy()
+    render_s, images = {}, {}
+    for shading in SDF_SHADINGS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images[shading] = trainer.render(res=SDF_RENDER, shading=shading,
+                                         matcap=tex)
+        render_s[shading] = time.perf_counter() - t0
+    launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = train_s / SDF_ITERS * 1e3
+    h, w = SDF_RENDER
+    img = images['normal']
+    result = {'path': 'sdf', 'iterations': trainer.iteration,
+              'train_seconds': train_s, 'mean_step_ms': step_ms,
+              'iou': iou, 'peak_mem_gb': peak_gb,
+              'render_seconds': render_s,
+              'l2_loss_by_chunk': [e['l2_loss'] for e in losses[::5]]
+              + [losses[-1]['l2_loss']],
+              'launches': launches}
+    log('  sdf: ' + json.dumps(result))
+    for shading, im in images.items():
+        if im.shape != (h, w, 3) or not np.isfinite(im).all():
+            raise AssertionError(f'sdf {shading} render: shape {im.shape}, '
+                                 f'finite {np.isfinite(im).all()}')
+    if not (img[h // 2, w // 2].sum() > 0 and img[0, 0].sum() == 0):
+        raise AssertionError('sdf normal render: the centre misses or the '
+                             f'corner hits ({img[h // 2, w // 2]}, '
+                             f'{img[0, 0]})')
+    if not iou >= SDF_IOU_FLOOR:
+        raise AssertionError(f'sdf: IoU {iou:.2f} after {SDF_ITERS} steps '
+                             f'< {SDF_IOU_FLOOR}')
+    if launches['scatter_add'] < SDF_ITERS:
+        raise AssertionError(f'sdf: B1 not launched every step: {launches}')
+    phase_profile(trainer, 3, 'sdf', step_ms,
+                  run=lambda: trainer.train(num_iterations=3))
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
 RANGES = ('step/draws', 'step/recalib', 'step/decode', 'trace/march',
           'trace/group', 'trace/compact', 'field/encode',
           'field/paged_encode', 'field/finish', 'field/head',
@@ -2699,13 +2826,40 @@ PORT_KERNELS = ('scatter_add_rows_kernel', 'paged_gather_kernel',
                 'paged_scatter_kernel', 'voxel_dda_kernel')
 
 
+REMAINDER_FLOOR = -0.02     # backward remainder / busy time below: a fault
+
+
+def _range_device_us(event, ancestors=frozenset()):
+    """(counted, recounted): device time of the kernels that a stage
+    range's ops launched, each op's own kernels down through its children,
+    leaving out the ranges nested in it (each counts its own); and the time
+    its ``device_time_total`` counts a second time.  PyTorch attaches a
+    kernel to every CPU event that carries the launch's correlation id, and
+    CUPTI's 'Command Buffer Full' event (the host waiting inside a launch
+    for room in the launch queue, so only when the host runs far ahead of
+    the card) nests in the launching op with that same id: its kernels are
+    counted once, at the op."""
+    own = sum(k.duration for k in event.kernels)
+    counted, recounted = (0.0, own) if event.id in ancestors else (own, 0.0)
+    ancestors = ancestors | {event.id}
+    for ch in event.cpu_children:
+        if ch.name not in RANGES:
+            c, r = _range_device_us(ch, ancestors)
+            counted += c
+            recounted += r
+    return counted, recounted
+
+
 def phase_profile(trainer, steps: int, label: str, step_ms: float,
                   run=None):
     """Device time by step stage (the record_function ranges of the port)
     and by kernel over ``steps`` training steps under torch.profiler.  The
     backward runs on autograd's device thread, outside those ranges: it is
     the remainder of the device's busy time, with the port's own CUDA
-    kernels (``PORT_KERNELS``, also reported by name).
+    kernels (``PORT_KERNELS``, also reported by name).  Each kernel counts
+    in one range at most (``_range_device_us``), so the remainder below
+    ``REMAINDER_FLOOR`` of the busy time fails the run: a range that counts
+    work twice, or work outside the busy sum.
 
     The idle share compares the device's busy time per step with the mean
     step time measured without the profiler (``step_ms``).  Host syncs
@@ -2728,6 +2882,7 @@ def phase_profile(trainer, steps: int, label: str, step_ms: float,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels, ranges = {}, dict.fromkeys(RANGES, 0.0)
+    recounted = dict.fromkeys(RANGES, 0.0)
     syncs = copies = device_ops = 0
     for e in prof.events():
         if e.name.startswith('Memcpy HtoD'):
@@ -2739,12 +2894,15 @@ def phase_profile(trainer, steps: int, label: str, step_ms: float,
                 kernels[e.name] = (kernels.get(e.name, 0.0)
                                    + e.time_range.elapsed_us())
         elif e.name in ranges:
-            ranges[e.name] += e.device_time_total
+            counted, again = _range_device_us(e)
+            ranges[e.name] += counted
+            recounted[e.name] += again
         elif e.name == 'cudaStreamSynchronize':
             syncs += 1
     busy_ms = sum(kernels.values()) / 1e3 / steps
     per_step = {k: v / 1e3 / steps for k, v in ranges.items()}
-    per_step['backward (remainder)'] = busy_ms - sum(per_step.values())
+    remainder = busy_ms - sum(per_step.values())
+    per_step['backward (remainder)'] = remainder
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     port = {name: sum(v for n, v in kernels.items() if name in n)
             / 1e3 / steps for name in PORT_KERNELS}
@@ -2757,6 +2915,8 @@ def phase_profile(trainer, steps: int, label: str, step_ms: float,
            'htod_copies_per_step': copies / steps,
            'device_ops_per_step': device_ops / steps,
            'stage_device_ms_per_step': per_step,
+           'recounted_by_device_time_total_ms_per_step': {
+               k: v / 1e3 / steps for k, v in recounted.items() if v},
            'port_kernel_device_ms_per_step': port,
            'top_kernels_ms_per_step': [[n[:90], v / 1e3 / steps]
                                        for n, v in top]}
@@ -2766,6 +2926,11 @@ def phase_profile(trainer, steps: int, label: str, step_ms: float,
     if syncs / steps > 1.0:
         raise AssertionError(f'{syncs / steps} stream syncs per step: the '
                              'step waits for the card more than once')
+    if remainder < REMAINDER_FLOOR * busy_ms:
+        raise AssertionError(
+            f'{label}: the stage ranges hold {-remainder:.3f} ms a step more '
+            f'than the device was busy ({busy_ms:.3f} ms): a range counts '
+            'work twice or outside the busy sum')
     return out
 
 
@@ -2813,12 +2978,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--prune-every', type=int, default=None,
                     help='lower the config prune cadence (default: keep it)')
+    ap.add_argument('--log', type=str, default=None,
+                    help='also write every line of the output to this file')
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing to run', file=sys.stderr)
         return 1
+    if args.log:
+        os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)
+        LOG_FILES.append(open(args.log, 'w'))
     sys.path.insert(0, ROOT)
     from shacira_tpu_torch.device import resolve_device
     from shacira_tpu_torch.kernels import build
@@ -2884,6 +3054,8 @@ def main(argv=None) -> int:
     launches.update(voxel_phases(dev, rows))
     log('phase backbones:')
     launches.update(phase_backbones(dev, rows))
+    log('phase sdf:')
+    launches['sdf'] = phase_sdf(dev, rows)
     # each kernel's launches come from the path it serves: B1 from the flat
     # lego run, B2 and B3 from the paged one (which also runs B1(b)), B2
     # with its occupancy row from the 'kernel' run, V1 and B1(a) at V8's
@@ -2913,7 +3085,8 @@ def main(argv=None) -> int:
                ('scatter_add_octree', 'scatter_add', 'octree'),
                ('scatter_add_codebook', 'scatter_add', 'codebook'),
                ('scatter_add_triplanar', 'scatter_add', 'triplanar'),
-               ('scatter_add_hash', 'scatter_add', 'hash'))
+               ('scatter_add_hash', 'scatter_add', 'hash'),
+               ('scatter_add_sdf', 'scatter_add', 'sdf'))
     counts = ('updates', 'atomics', 'distinct_per_tile',
               'occupancy_row_mismatches', 'valid_mismatches', 'max_ulps',
               'steps_walked', 'longest_walk', 'us_per_step', 'crossings',
@@ -2947,9 +3120,10 @@ def main(argv=None) -> int:
                                       'paged_scatter', 'voxel_crossings'))):
         missing += [f'{w} ({path} path)' for w in wrappers
                     if launches[path][w] <= 0]
-    # every backbone's feature-table gather runs B1 in its backward; the
-    # triplanar YAML's 'voxel' march runs V1
-    for path in ('octree', 'codebook', 'triplanar', 'hash', 'octree_rtmv'):
+    # every backbone's feature-table gather and the SDF grid's hash encode
+    # run B1 in their backward; the triplanar YAML's 'voxel' march runs V1
+    for path in ('octree', 'codebook', 'triplanar', 'hash', 'octree_rtmv',
+                 'sdf'):
         if launches[path]['scatter_add'] <= 0:
             missing.append(f'scatter_add ({path} path)')
     if launches['triplanar']['voxel_crossings'] <= 0:

@@ -10,14 +10,14 @@ The structure (sorted morton codes, trinkets) is built once with torch on
 the device it is asked for and stays fixed; only the feature tables are
 parameters.  Every LOD's corner rows are gathered with ONE
 :func:`ops.scatter.gather_rows`, whose backward is one launch of kernel B1
-over the tables of all LODs.  ``OctreeStructure.from_mesh`` waits for the
-mesh utilities (ROADMAP Queue A item 13).
+over the tables of all LODs.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from shacira_tpu_torch.ops import coding, spc
@@ -69,6 +69,27 @@ class OctreeStructure:
         return cls(spc.Octree.from_pointcloud(pts, cfg.active_lods[-1],
                                               dilate=dilate, device=device),
                    cfg.active_lods)
+
+    @classmethod
+    def from_mesh(cls, cfg: OctreeGridConfig, path_or_arrays,
+                  num_samples_on_mesh: int = 100_000, seed: int = 0,
+                  dilate: int = 0, device=None):
+        """Octree of a triangle mesh (an OBJ path or (verts, faces)):
+        ``num_samples_on_mesh`` surface samples of the normalized mesh,
+        drawn on the host with the JAX package's draws, quantized at the
+        top LOD."""
+        from shacira_tpu_torch.ops import mesh as mesh_ops
+        if isinstance(path_or_arrays, str):
+            verts, faces = mesh_ops.load_obj(path_or_arrays)
+        else:
+            verts, faces = path_or_arrays
+        verts = mesh_ops.normalize_mesh(np.asarray(verts, np.float64))
+        rng = np.random.RandomState(seed)
+        surf = mesh_ops.sample_surface(rng, verts,
+                                       np.asarray(faces, np.int64),
+                                       num_samples_on_mesh)
+        return cls.from_pointcloud(cfg, np.clip(surf, -1, 1), dilate=dilate,
+                                   device=device)
 
     @classmethod
     def from_spc(cls, cfg: OctreeGridConfig, octree: spc.Octree):

@@ -245,6 +245,9 @@ class _HashEncode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if not ctx.needs_input_grad[1]:
+            # a gradient taken for the coordinates alone: none flows there
+            return None, None, None
         gidx, w = ctx.saved_tensors
         spec = ctx.spec
         g = g.float()                                     # [N, L, F]
