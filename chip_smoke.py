@@ -146,7 +146,26 @@ Phases, each of which must pass (exit code 1 otherwise):
                (IoU over 8 batches at least 90), the normal, shadow and
                matcap renders at 256 x 256 (finite; the normal render hits
                at the centre and not at the corner), each timed; B1 every
-               step; then 3 steps profiled.
+               step; then 3 steps profiled;
+22. viewer  -- the lego config through the config reader, trained for 200
+               iterations across the prune at 100 through
+               ``OptimizationApp.from_multiview`` (``render_tb_every`` 5:
+               one ``render/view0`` image) on the Blender-format scene of
+               ``write_nerf_scene(40, 1, 128)``, while a client thread
+               times steps with no frame requested, fetches ``/`` and
+               ``/stats``, then 256 x 256 frames back to back (full ones
+               and ``q=0.25&layers=1`` ones with the occupied cells and the
+               axes), each a JPEG, and one frame under the step lock; that
+               frame rendered again from the state it read (1e-5 of the
+               largest value); a frame of the field returning the extra
+               channel ``xyz``: its rgb equal to the plain frame's (1e-5)
+               and ``xyz`` to ``alpha * o + depth * d`` (1e-4), the segment
+               sums (B1(b) at 5 + 3 columns) it launched counted alone; a
+               4-frame overlay turntable; step times with and without the
+               viewer, frame, JPEG-encode and overlay times, and an idle
+               full frame profiled (after serving).  Phase 2 also
+               checks and times B1(b) at that width.  No profile runs
+               while the viewer serves.
 
 Every profile fails the run when its stage ranges hold more than 2 % of
 the busy time beyond it (a negative backward remainder).
@@ -411,6 +430,20 @@ def phase_kernels(dev):
         scatter.scatter_add_plain, reps=50)
     rows['segment_sum'].update(
         use='per-ray sums, shacira_tpu/tracers/rf_tracer.py:325')
+    # the same sums with a 3-column extra channel at the training step's
+    # shape, shacira_tpu/tracers/rf_tracer.py:319-325: 5 + 3 columns (phase
+    # viewer holds one batch of its extras frame, which launches them)
+    extra = torch.randn((ids.shape[0], 3), generator=gen, device=dev)
+    payload8 = torch.cat([payload, extra * (payload[:, 3:4] != 0)], dim=1)
+    del extra
+    rows['segment_sum_extras'] = check_scatter(
+        'segment_sum, extras width', ids, payload8, rays,
+        lambda i, v, t: scatter.segment_sum(i, v, t),
+        scatter.scatter_add_plain, reps=50)
+    rows['segment_sum_extras'].update(
+        use='per-ray sums with extra channels (5 + 3 columns), '
+            'shacira_tpu/tracers/rf_tracer.py:319-325')
+    del payload8
     for row in rows.values():
         row.update(source='shacira_tpu_torch/csrc/scatter.cu',
                    replaces='shacira_tpu/ops/pallas_scatter.py:29')
@@ -2815,6 +2848,372 @@ def phase_sdf(dev, rows) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The viewer: the lego field trained while the web viewer serves it.
+# ---------------------------------------------------------------------------
+
+VIEWER_SCENE = dict(views=40, val_views=1, res=128)   # write_nerf_scene
+VIEWER_ITERS = 200          # 5 epochs of 40 views, across the prune at 100
+VIEWER_TB_EVERY = 5         # epochs: one render/view0 image, at 200
+VIEWER_RES = 256            # the viewer's frame, square
+VIEWER_CAMERA = ((0.9, 0.45, 0.3), (0.0, 0.0, 0.0))   # origin, target
+# training steps timed by the client: (first, last) iteration without any
+# frame requested, then while frames are fetched back to back
+VIEWER_WINDOWS = ((10, 60), (110, 190))
+FRAME_BATCH = 16384         # offline.render_rays' rays a batch
+VIEWER_FRAMES = 5           # at least: full, quarter + layers, alternating
+VIEWER_WAIT_S = 900         # the client's patience for an iteration
+
+
+class _ImageLog:
+    """Logger for the trainer that keeps each image's tag, step and shape
+    (TensorBoard need not be installed)."""
+
+    def __init__(self):
+        self.images, self.scalars = [], 0
+
+    def scalar(self, tag, value, step):
+        self.scalars += 1
+
+    def image(self, tag, img, step):
+        self.images.append((tag, step, tuple(img.shape),
+                            bool(np.isfinite(img).all())))
+
+    def record(self, metrics):
+        pass
+
+
+def phase_viewer(dev, rows, extra=()):
+    """The lego config (``extra`` flags after it) trained for
+    ``VIEWER_ITERS`` iterations through ``OptimizationApp.from_multiview``
+    while a client thread uses the viewer over HTTP, on the Blender-format
+    scene of ``tools/make_synthetic_data.write_nerf_scene(**VIEWER_SCENE)``
+    (see :func:`_drive_viewer`).  Counts are zeroed just before the run and
+    read just after it, then zeroed again just before the extras frame and
+    read just after it; one of the extras frame's own segment sums, recorded
+    as it launched, is held against the plain version as row
+    ``rows['segment_sum_extras_frame']``; returns the launches of the two
+    paths, ``viewer`` and ``viewer_extras``."""
+    import tempfile
+
+    import torch
+    from shacira_tpu_torch.ops import scatter
+    from tools.make_synthetic_data import write_nerf_scene
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = os.path.join(tmp, 'scene')
+        t0 = time.perf_counter()
+        write_nerf_scene(scene, **VIEWER_SCENE)
+        log(f'  scene: {VIEWER_SCENE} in {time.perf_counter() - t0:.1f} s')
+        launches, extras, (ids, payload, rays) = _drive_viewer(dev, scene,
+                                                               extra)
+    # the wrapper takes the tracer's int64 ray ids to int32 before the
+    # launch: the check times the launch alone, as the other rows do
+    rows['segment_sum_extras_frame'] = check_scatter(
+        'segment_sum, one batch of the extras frame', ids.to(torch.int32),
+        payload, rays,
+        lambda i, v, t: scatter.segment_sum(i, v, t),
+        scatter.scatter_add_plain, reps=50)
+    rows['segment_sum_extras_frame'].update(
+        use='per-ray sums with extra channels (5 + 3 columns) of the '
+            'first ray batch of the viewer\'s extras frame, '
+            'shacira_tpu/tracers/rf_tracer.py:319-325',
+        source='shacira_tpu_torch/csrc/scatter.cu',
+        replaces='shacira_tpu/ops/pallas_scatter.py:29')
+    del ids, payload
+    torch.cuda.empty_cache()
+    return {'viewer': launches, 'viewer_extras': extras}
+
+
+def _rel_max(got, want) -> float:
+    """Largest absolute difference over the largest absolute value."""
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _drive_viewer(dev, scene, extra):
+    """The phase's checks, on a written scene; returns the path's launches,
+    the extras frame's, and the (ray ids, payload, rays) of the extras
+    frame's first segment sum.
+
+    The client thread times steps ``VIEWER_WINDOWS[0]`` with no frame
+    requested, fetches ``/`` and ``/stats``, then fetches frames back to
+    back through steps ``VIEWER_WINDOWS[1]`` (at least ``VIEWER_FRAMES``,
+    full ones alternating with ``q=0.25&layers=1`` ones), each a JPEG, and
+    last renders one frame while holding the step lock, with a copy of the
+    parameters and occupancy it read.  After the run: that frame rendered
+    again from the copy (1e-5 of the largest value); a frame of the field
+    wrapped to return the extra channel ``xyz`` (its coordinates): its rgb
+    equal to the plain frame's (1e-5) and ``xyz`` equal to ``alpha * o +
+    depth * d`` (1e-4 of the largest value; integration is linear), the
+    segment sums it launched counted alone, each 5 + 3 columns wide; one
+    ``render/view0`` image
+    logged; a 4-frame overlay turntable through ``render_turntable``; frame,
+    JPEG-encode and overlay times; one idle full frame profiled."""
+    import threading
+    import traceback
+    import urllib.request
+
+    import torch
+    from shacira_tpu_torch.apps import train_nerf
+    from shacira_tpu_torch.core.primitives import (axes_gizmo,
+                                                   occupancy_wireframe)
+    from shacira_tpu_torch.datasets.nerf_synthetic import load_nerf_synthetic
+    from shacira_tpu_torch.optim import tree_map
+    from shacira_tpu_torch.render import offline
+    from shacira_tpu_torch.render.optimization_app import OptimizationApp
+    from shacira_tpu_torch.render.overlay import PinholeCamera, draw_layers
+    from shacira_tpu_torch.render.web_viewer import encode_jpeg
+    from shacira_tpu_torch.tracers import rf_tracer
+    args = _nerf_args(['--config', os.path.join(ROOT, 'configs',
+                                                'nerf_lego.yaml'),
+                       '--device', str(dev), '--dataset-path', scene,
+                       '--render-tb-every', str(VIEWER_TB_EVERY),
+                       *extra])
+    data = load_nerf_synthetic(scene, split='train', bg_color=args.bg_color,
+                               mip=args.mip)
+    val = load_nerf_synthetic(scene, split='val', bg_color=args.bg_color,
+                              mip=args.mip)
+    tb = _ImageLog()
+    trainer = train_nerf.build_trainer(args, data, val, logger=tb)
+    spec = trainer.model_cfg.grid.spec
+    log(f'  lego config through the app\'s reader: {spec.num_lods} LODs, '
+        f'{spec.total_size} rows, {args.num_rays_sampled_per_img} rays x '
+        f'{args.num_steps} steps, max_samples {args.max_samples}, '
+        f'prune_every {args.prune_every}, render_tb_every '
+        f'{args.render_tb_every}; {data.num_views} views of {data.h} x '
+        f'{data.w}')
+    cam = offline.CameraConfig(width=VIEWER_RES, height=VIEWER_RES,
+                               fov=30.0, dist_min=float(data.dist_min),
+                               dist_max=float(data.dist_max))
+    layers = {'occupancy': occupancy_wireframe(trainer.occ_state['occ'],
+                                               max_cells=2048),
+              'axes': axes_gizmo(0.5)}
+    app = OptimizationApp.from_multiview(trainer, camera=cam, port=0,
+                                         layers=layers)
+    origin, target = VIEWER_CAMERA
+    query = ('/render?ox={}&oy={}&oz={}&tx={}&ty={}&tz={}'
+             .format(*origin, *target))
+    out = {'frames': [], 'errors': []}
+
+    def get(path):
+        url = f'http://127.0.0.1:{app.server.port}{path}'
+        with urllib.request.urlopen(url, timeout=VIEWER_WAIT_S) as r:
+            return r.read(), r.headers
+
+    def wait_for(it):
+        deadline = time.perf_counter() + VIEWER_WAIT_S
+        while trainer.iteration < it:
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f'iteration {it} not reached')
+            time.sleep(0.002)
+        return time.perf_counter(), trainer.iteration
+
+    def client():
+        try:
+            (t_a, i_a), (t_b, i_b) = (wait_for(i)
+                                      for i in VIEWER_WINDOWS[0])
+            out['no_viewer'] = ((t_b - t_a) / (i_b - i_a) * 1e3, i_a, i_b)
+            out['page'] = get('/')[0]
+            out['stats'] = json.loads(get('/stats')[0])
+            t_c, i_c = wait_for(VIEWER_WINDOWS[1][0])
+            n = 0
+            while n < VIEWER_FRAMES or trainer.iteration < \
+                    VIEWER_WINDOWS[1][1]:
+                kind = 'full' if n % 2 == 0 else 'q=0.25, layers'
+                t0 = time.perf_counter()
+                body, headers = get(query + ('' if n % 2 == 0
+                                             else '&q=0.25&layers=1'))
+                out['frames'].append({
+                    'kind': kind, 'jpeg': body[:2] == b'\xff\xd8',
+                    'bytes': len(body),
+                    'iteration': int(headers['X-Iteration']),
+                    'frame_ms': float(headers['X-Frame-Ms']),
+                    'http_ms': (time.perf_counter() - t0) * 1e3})
+                n += 1
+            t_d, i_d = time.perf_counter(), trainer.iteration
+            out['with_viewer'] = ((t_d - t_c) / max(i_d - i_c, 1) * 1e3,
+                                  i_c, i_d)
+            with app.lock:        # no step in between: the frame's state
+                snap = {'params': tree_map(lambda x: x.detach().clone(),
+                                           trainer.params),
+                        'occ': {k: v.clone()
+                                for k, v in trainer.occ_state.items()},
+                        'iteration': trainer.iteration}
+                frame, k = app.server.render_frame_at(
+                    origin, target, return_iteration=True)
+            out['snapshot'] = (snap, frame, k)
+        except Exception:                     # reported by the phase
+            out['errors'].append(traceback.format_exc())
+
+    reader = threading.Thread(target=client, daemon=True)
+
+    def log_fn(entry):
+        if entry.get('iteration') == VIEWER_ITERS:
+            reader.join(timeout=VIEWER_WAIT_S)   # before run() stops serving
+        log(f'  viewer training: {entry}')
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    app.server.start_background()
+    reader.start()
+    t0 = time.perf_counter()
+    app.run(num_iterations=VIEWER_ITERS, log_fn=log_fn)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = _launch_counts()     # the steps and the frames served
+    reader.join(timeout=VIEWER_WAIT_S)
+    if reader.is_alive() or out['errors']:
+        raise AssertionError('viewer client failed: '
+                             + ('still running' if reader.is_alive()
+                                else out['errors'][0]))
+
+    # the frame rendered under the lock, again from the copy it read
+    snap, frame, k = out['snapshot']
+    tcfg, occ_cfg = trainer.eval_tracer_cfg, trainer.model_cfg.occ_cfg
+    ro, rd = offline.lookat_rays(origin, target, cam)
+
+    def render(field_fn, occ_state):
+        return offline.render_rays(
+            lambda rays, g: rf_tracer.trace(field_fn, occ_state, occ_cfg,
+                                            tcfg, rays, g),
+            ro, rd, cam, device=dev)
+
+    again = render(trainer.eval_field_fn(snap['params']), snap['occ'])
+    rerender_err = _rel_max(frame, again['rgb'].reshape(frame.shape))
+
+    # the extras frame: the field's coordinates as a 3-column channel
+    field_fn = trainer.eval_field_fn()
+
+    def with_xyz(coords, dirs):
+        rgb, density = field_fn(coords, dirs)
+        return rgb, density, {'xyz': coords}
+
+    # the tracer's segment sums recorded as they launch: their widths, and
+    # the first one's inputs for the kernel-against-plain check
+    segment_sum, widths, first = rf_tracer.segment_sum, [], []
+
+    def recording(idx, vals, num_rows):
+        widths.append(vals.shape[1])
+        if not first:
+            first.append((idx.clone(), vals.detach().clone(), num_rows))
+        return segment_sum(idx, vals, num_rows)
+
+    torch.cuda.synchronize()
+    _reset_launches()
+    rf_tracer.segment_sum = recording
+    try:
+        t0 = time.perf_counter()
+        xframe = render(with_xyz, trainer.occ_state)
+        torch.cuda.synchronize()
+        extras_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        rf_tracer.segment_sum = segment_sum
+    extras_launches = _launch_counts()
+    plain = render(field_fn, trainer.occ_state)
+    extras_rgb_err = _rel_max(xframe['rgb'], plain['rgb'])
+    want_xyz = xframe['alpha'] * ro + xframe['depth'] * rd
+    xyz_err = _rel_max(xframe['xyz'], want_xyz)
+
+    # frames, JPEG and overlay alone, with the trainer idle
+    def frame_ms(scale, reps=5):
+        app.server.render_frame_at(origin, target, scale=scale)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            app.server.render_frame_at(origin, target, scale=scale)
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    img = plain['rgb'].reshape(VIEWER_RES, VIEWER_RES, 3)
+    depth = plain['depth'].reshape(VIEWER_RES, VIEWER_RES)
+    pc = PinholeCamera.from_lookat(origin, target, cam)
+    timings = {'frame_ms_idle_full': frame_ms(1.0),
+               'frame_ms_idle_q0.25': frame_ms(0.25),
+               'extras_frame_ms': extras_ms}
+    for name, fn, reps in (
+            ('jpeg_encode_ms', lambda: encode_jpeg(img, VIEWER_RES,
+                                                   VIEWER_RES), 10),
+            ('overlay_ms', lambda: draw_layers(img, pc, layers, depth=depth),
+             3)):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        timings[name] = (time.perf_counter() - t0) / reps * 1e3
+    # where an idle full frame's device time goes (not while serving: the
+    # server has stopped); each ray batch syncs the stream for its two
+    # uploads (origins, directions) and one readback per output channel
+    batches = -(-VIEWER_RES * VIEWER_RES // FRAME_BATCH)
+    phase_profile(trainer, 1, 'viewer frame (256 x 256, trainer idle)',
+                  timings['frame_ms_idle_full'],
+                  run=lambda: app.server.render_frame_at(origin, target),
+                  max_syncs=batches * (2 + len(plain)))
+    args.overlay_layers = True
+    t0 = time.perf_counter()
+    turntable = train_nerf.render_turntable(trainer, args, num_angles=4,
+                                            res=VIEWER_RES)
+    timings['overlay_turntable_s'] = time.perf_counter() - t0
+    frames = out['frames']
+    full = [f for f in frames if f['kind'] == 'full']
+    low = [f for f in frames if f['kind'] != 'full']
+    result = {
+        'iterations': trainer.iteration, 'train_seconds': train_s,
+        'step_ms_without_viewer': out['no_viewer'][0],
+        'step_ms_without_viewer_iterations': out['no_viewer'][1:],
+        'step_ms_with_viewer': out['with_viewer'][0],
+        'step_ms_with_viewer_iterations': out['with_viewer'][1:],
+        'frames_while_training': len(frames),
+        'frame_ms_full_while_training': [f['frame_ms'] for f in full],
+        'frame_ms_q0.25_while_training': [f['frame_ms'] for f in low],
+        'http_ms_full': [f['http_ms'] for f in full],
+        'frame_iterations': [f['iteration'] for f in frames],
+        'jpeg_bytes': [f['bytes'] for f in frames], **timings,
+        'rerendered_frame_iteration': k, 'rerender_max_rel_err': rerender_err,
+        'extras_rgb_max_rel_err': extras_rgb_err,
+        'extras_xyz_max_rel_err': xyz_err,
+        'extras_frame_launches': extras_launches,
+        'extras_frame_segment_sum_widths': widths,
+        'tb_images': tb.images, 'peak_mem_gb':
+            torch.cuda.max_memory_allocated() / 1e9,
+        'stats': out['stats'], 'launches': launches}
+    log('  viewer: ' + json.dumps(result))
+    if trainer.iteration != VIEWER_ITERS:
+        raise AssertionError(f'viewer: trained to {trainer.iteration}')
+    if not (all(f['jpeg'] for f in frames) and len(full) >= 3
+            and len(low) >= 2):
+        raise AssertionError(f'viewer: frames {frames}')
+    its = [f['iteration'] for f in frames]
+    if its != sorted(its) or not 0 < its[0] <= its[-1] <= VIEWER_ITERS:
+        raise AssertionError(f'viewer: frame iterations {its}')
+    if b'viewer' not in out['page'] or not (
+            'optimization' in out['stats']
+            and 'mem_in_use_mb' in out['stats']['renderer']):
+        raise AssertionError(f'viewer: page or stats {out["stats"]}')
+    if k != snap['iteration'] or not rerender_err <= REL_TOL:
+        raise AssertionError(f'viewer: frame of iteration {k} rendered '
+                             f'again from its state: {rerender_err:.3e}')
+    if not (extras_rgb_err <= REL_TOL and xyz_err <= 1e-4):
+        raise AssertionError(f'viewer extras frame: rgb {extras_rgb_err:.3e}'
+                             f', xyz {xyz_err:.3e}')
+    if tb.images != [('render/view0', VIEWER_ITERS, (val.h, val.w, 3),
+                      True)]:
+        raise AssertionError(f'viewer: render/view0 images {tb.images}')
+    if len(turntable) != 4 or not all(
+            f.shape == (VIEWER_RES, VIEWER_RES, 3) and np.isfinite(f).all()
+            for f in turntable):
+        raise AssertionError('viewer: overlay turntable')
+    missing = [w for w in ('scatter_add', 'segment_sum')
+               if launches[w] <= 0]
+    if missing or extras_launches['segment_sum'] <= 0 or \
+            extras_launches['segment_sum'] != len(widths) or \
+            set(widths) != {5 + 3}:
+        raise AssertionError(f'viewer: no {missing} launched, or the extras '
+                             f'frame\'s segment sums {extras_launches} are '
+                             f'not all 5 + 3 columns wide: {widths}')
+    del app, trainer
+    torch.cuda.empty_cache()
+    return launches, extras_launches, first[0]
+
+
 RANGES = ('step/draws', 'step/recalib', 'step/decode', 'trace/march',
           'trace/group', 'trace/compact', 'field/encode',
           'field/paged_encode', 'field/finish', 'field/head',
@@ -2851,7 +3250,7 @@ def _range_device_us(event, ancestors=frozenset()):
 
 
 def phase_profile(trainer, steps: int, label: str, step_ms: float,
-                  run=None):
+                  run=None, max_syncs: float = 1.0):
     """Device time by step stage (the record_function ranges of the port)
     and by kernel over ``steps`` training steps under torch.profiler.  The
     backward runs on autograd's device thread, outside those ranges: it is
@@ -2867,7 +3266,9 @@ def phase_profile(trainer, steps: int, label: str, step_ms: float,
     pageable memory makes one) and host-to-device copies per step; device
     ops count the kernels and copies the card ran per step.  ``run()``
     drives the ``steps`` steps (default: the multiview trainer's
-    ``train(num_iterations=steps)``)."""
+    ``train(num_iterations=steps)``); more than ``max_syncs`` stream syncs
+    a step fail the run (None: a render, whose batches each come back to
+    the host)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2923,7 +3324,7 @@ def phase_profile(trainer, steps: int, label: str, step_ms: float,
     log('  ' + json.dumps(out))
     if busy_ms <= 0.0:
         raise AssertionError('the profiler saw no device time')
-    if syncs / steps > 1.0:
+    if max_syncs is not None and syncs / steps > max_syncs:
         raise AssertionError(f'{syncs / steps} stream syncs per step: the '
                              'step waits for the card more than once')
     if remainder < REMAINDER_FLOOR * busy_ms:
@@ -3056,12 +3457,15 @@ def main(argv=None) -> int:
     launches.update(phase_backbones(dev, rows))
     log('phase sdf:')
     launches['sdf'] = phase_sdf(dev, rows)
+    log('phase viewer:')
+    launches.update(phase_viewer('cuda', rows))
     # each kernel's launches come from the path it serves: B1 from the flat
     # lego run, B2 and B3 from the paged one (which also runs B1(b)), B2
     # with its occupancy row from the 'kernel' run, V1 and B1(a) at V8's
     # width from the v8 run, V1 on a full grid, B1(b), B2 and B3 at ld 2
-    # from the voxel run, B1 at each backbone's shapes from its own run;
-    # launches_by_path adds the other runs
+    # from the voxel run, B1 at each backbone's shapes from its own run,
+    # B1(b) at 5 + 3 columns from the viewer's extras frame (the only
+    # launches at that width); launches_by_path adds the other runs
     # (row name, wrapper count it reports, path); the ray-ordered row times
     # the same wrapper as scatter_add on the step's sample order
     path_of = (('scatter_add', 'scatter_add', 'lego'),
@@ -3086,7 +3490,9 @@ def main(argv=None) -> int:
                ('scatter_add_codebook', 'scatter_add', 'codebook'),
                ('scatter_add_triplanar', 'scatter_add', 'triplanar'),
                ('scatter_add_hash', 'scatter_add', 'hash'),
-               ('scatter_add_sdf', 'scatter_add', 'sdf'))
+               ('scatter_add_sdf', 'scatter_add', 'sdf'),
+               ('segment_sum_extras', 'segment_sum', 'viewer_extras'),
+               ('segment_sum_extras_frame', 'segment_sum', 'viewer_extras'))
     counts = ('updates', 'atomics', 'distinct_per_tile',
               'occupancy_row_mismatches', 'valid_mismatches', 'max_ulps',
               'steps_walked', 'longest_walk', 'us_per_step', 'crossings',
@@ -3128,6 +3534,10 @@ def main(argv=None) -> int:
             missing.append(f'scatter_add ({path} path)')
     if launches['triplanar']['voxel_crossings'] <= 0:
         missing.append('voxel_crossings (triplanar path)')
+    # the viewer's training steps (B1(a), B1(b)) and its frames' sums
+    for wrapper in ('scatter_add', 'segment_sum'):
+        if launches['viewer'][wrapper] <= 0:
+            missing.append(f'{wrapper} (viewer path)')
     if missing:
         raise AssertionError(f'kernels not launched on the main path: '
                              f'{missing}')

@@ -10,9 +10,13 @@ under the profiler (``--profile``), saves ``resume_state.ckpt`` and
 ``model_best.ckpt``, evaluates PSNR, SSIM (and LPIPS with
 ``SHACIRA_LPIPS_WEIGHTS``) on every held-out view, adds the compressed size
 report and writes ``metrics.json``, then ``val_view0.png`` and a 360-degree
-``turntable.gif`` (not with ``--metrics-only``).  ``--resume`` continues
+``turntable.gif`` (not with ``--metrics-only``; ``--overlay-layers true``
+draws the occupied cells and the axes over it).  ``--resume`` continues
 from ``resume_state.ckpt``, ``--pretrained`` starts from a model file, and
-``--valid-only`` evaluates ``model_best.ckpt`` without training.
+``--valid-only`` evaluates ``model_best.ckpt`` without training.  An
+``ExperimentLogger`` in the log directory takes the training scalars, the
+validation records, the ``render/view0`` images of ``--render-tb-every``
+and the final metrics.
 
 Usage:
     python -m shacira_tpu_torch.apps.train_nerf --config configs/nerf_lego.yaml \
@@ -29,27 +33,29 @@ import numpy as np
 import torch
 
 from shacira_tpu_torch import config as cfg_mod
+from shacira_tpu_torch.core.primitives import axes_gizmo, occupancy_wireframe
 from shacira_tpu_torch.datasets.nerf_synthetic import load_nerf_synthetic
 from shacira_tpu_torch.datasets.rtmv import load_rtmv
-from shacira_tpu_torch.models import pipeline
-from shacira_tpu_torch.models.nefs import nerf as nerf_mod
 from shacira_tpu_torch.render import offline
 from shacira_tpu_torch.tracers import rf_tracer
 from shacira_tpu_torch.trainers.multiview_trainer import MultiviewTrainer
 from shacira_tpu_torch.utils import checkpoint
+from shacira_tpu_torch.utils.logging import ExperimentLogger
 from shacira_tpu_torch.utils.perf import trace_to
 
 log = logging.getLogger('shacira_tpu_torch')
 
 
-def build_trainer(args, data, val_data=None, log_dir=None) -> MultiviewTrainer:
+def build_trainer(args, data, val_data=None, log_dir=None,
+                  logger=None) -> MultiviewTrainer:
     """Trainer for parsed args on loaded data."""
     return MultiviewTrainer(
         cfg_mod.build_nerf_trainer_config(args),
         cfg_mod.build_nerf_model_config(args),
         cfg_mod.build_tracer_config(args), data,
         num_rays=args.num_rays_sampled_per_img, seed=args.seed,
-        device=args.device, val_dataset=val_data, log_dir=log_dir)
+        device=args.device, val_dataset=val_data, log_dir=log_dir,
+        logger=logger)
 
 
 def _install_params(trainer, path: str):
@@ -66,7 +72,15 @@ def main(argv=None):
         raise SystemExit('--dataset-path is required')
     log_dir = os.path.join(args.log_dir, args.exp_name)
     os.makedirs(log_dir, exist_ok=True)
+    logger = ExperimentLogger(log_dir, exp_name=args.exp_name)
+    try:
+        return _run(args, log_dir, logger)
+    finally:
+        logger.close()
 
+
+def _run(args, log_dir: str, logger: ExperimentLogger) -> int:
+    """Train (or reload), evaluate and write the results of ``main``."""
     def load(split):
         if args.multiview_dataset_format == 'rtmv':
             return load_rtmv(args.dataset_path, split=split, mip=args.mip,
@@ -85,7 +99,7 @@ def main(argv=None):
         val_data = None
         log.warning('No val split found; validating on the training split')
 
-    trainer = build_trainer(args, data, val_data, log_dir)
+    trainer = build_trainer(args, data, val_data, log_dir, logger)
     if args.pretrained:
         _install_params(trainer, args.pretrained)
         log.info('Loaded pretrained model from %s', args.pretrained)
@@ -128,6 +142,7 @@ def main(argv=None):
     metrics.update(trainer.size_report(use_codec=True))
     log.info('Validation (%s): PSNR %.2f | SSIM %.4f', metrics['split'],
              metrics['psnr'], metrics['ssim'])
+    logger.record({'final': True, **metrics})
     with open(os.path.join(log_dir, 'metrics.json'), 'w') as f:
         json.dump(metrics, f, indent=2)
 
@@ -144,10 +159,9 @@ def render_turntable(trainer, args, num_angles: int = None, res: int = None):
     square, default the dataset's size) around the trained field: the
     codebook decoded once (an alternative backbone in eval mode on the
     trainer's structure), the field traced in 16,384-ray batches with the
-    trainer's tracer config, as the JAX app renders it."""
-    if args.overlay_layers:
-        raise NotImplementedError('turntable overlay layers are not ported '
-                                  'yet (ROADMAP Queue A item 14)')
+    trainer's tracer config, as the JAX app renders it.  With
+    ``--overlay-layers`` each frame carries the wireframe of up to 2048
+    occupied cells and the axes gizmo, depth-tested."""
     d = trainer.dataset
     if num_angles is None:
         num_angles = args.num_angles
@@ -156,29 +170,24 @@ def render_turntable(trainer, args, num_angles: int = None, res: int = None):
     cam = offline.CameraConfig(width=res, height=res, fov=30.0,
                                dist_min=float(d.dist_min),
                                dist_max=float(d.dist_max))
-    mcfg, tcfg = trainer.model_cfg, trainer.tracer_cfg
-    params = trainer.params
-    if trainer.is_latent:
-        decoded = pipeline.decode_once(params, mcfg.grid)
-
-        def field_fn(coords, dirs):
-            return nerf_mod.nerf_rgba(params, mcfg, coords, dirs,
-                                      decoded=decoded)
-    else:
-        def field_fn(coords, dirs):
-            return nerf_mod.nerf_rgba(params, mcfg, coords, dirs,
-                                      structure=trainer.structure_tables,
-                                      training=False)
+    tcfg = trainer.eval_tracer_cfg
+    field_fn = trainer.eval_field_fn()
 
     def trace_fn(rays, generator: torch.Generator):
-        return rf_tracer.trace(field_fn, trainer.occ_state, mcfg.occ_cfg,
-                               tcfg, rays, generator)
+        return rf_tracer.trace(field_fn, trainer.occ_state,
+                               trainer.model_cfg.occ_cfg, tcfg, rays,
+                               generator)
 
+    layers = None
+    if args.overlay_layers:
+        layers = {'occupancy': occupancy_wireframe(trainer.occ_state['occ'],
+                                                   max_cells=2048),
+                  'axes': axes_gizmo(0.5)}
     origin = np.asarray(args.camera_origin, np.float32)
     radius = float(np.linalg.norm(origin[[0, 2]]))
     return list(offline.turntable(trace_fn, cam, num_angles=num_angles,
                                   radius=radius, elevation=float(origin[1]),
-                                  device=trainer.device))
+                                  layers=layers, device=trainer.device))
 
 
 if __name__ == '__main__':

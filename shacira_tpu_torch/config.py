@@ -7,12 +7,11 @@ inheritance, and an unknown key raises.  The flag surface is the JAX
 package's, so ``configs/kodak.yaml``, ``configs/pearl.yaml``,
 ``configs/nerf_base.yaml`` and ``configs/nerf_lego.yaml`` load as they are,
 and so do the other backbones' configs (``nerf_octree``, ``nerf_codebook``,
-``nerf_triplanar``, ``nerf_hash``).  Options whose code path is not ported
-yet (the NeRF app's TensorBoard renders) raise ``NotImplementedError``
-naming their ROADMAP item; ``--rng-impl`` selects a JAX generator and is
-accepted without effect (the port draws from one ``torch.Generator``).
-``--ldecode-type`` other than 'single' raises too: the JAX apps parse it
-but never pass it on, so they always build a single decoder.
+``nerf_triplanar``, ``nerf_hash``).  ``--rng-impl`` selects a JAX generator
+and is accepted without effect (the port draws from one
+``torch.Generator``).  ``--ldecode-type`` other than 'single' raises: the
+JAX apps parse it but never pass it on, so they always build a single
+decoder.
 """
 from __future__ import annotations
 
@@ -239,10 +238,6 @@ def parse_args(parser: argparse.ArgumentParser, argv=None):
     return args
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f'{what} is not ported yet (ROADMAP {item})')
-
-
 def build_grid_config(args, resolution_dim: int = 3):
     """Grid config from parsed args: ``--grid-type`` picks the backbone as
     the JAX package does.  LatentGrid (SHACIRA, 'xor' or 'paged' layout,
@@ -357,8 +352,6 @@ def build_nerf_model_config(args):
 def build_nerf_trainer_config(args):
     from shacira_tpu_torch.trainers.multiview_trainer import (
         MultiviewTrainerConfig)
-    if 0 < args.render_tb_every <= args.epochs:
-        _not_ported('render_tb_every', 'Queue A item 14')
     return MultiviewTrainerConfig(
         epochs=args.epochs, rgb_loss_weight=args.rgb_loss,
         optimizer_type=args.optimizer_type, lr=args.lr, grid_lr=args.grid_lr,
@@ -374,7 +367,7 @@ def build_nerf_trainer_config(args):
         adaptive_budget=args.adaptive_budget,
         budget_headroom=args.budget_headroom, min_budget=args.min_budget,
         chunk_size=args.chunk_size, valid_every=args.valid_every,
-        save_every=args.save_every)
+        save_every=args.save_every, render_tb_every=args.render_tb_every)
 
 
 def build_tracer_config(args):

@@ -25,7 +25,7 @@ from shacira_tpu_torch.ops import coding
 from shacira_tpu_torch.ops import paged_hash as ph
 from shacira_tpu_torch.ops.hashgrid import (
     PAGE_RES, HashGridSpec, geometric_resolutions, hash_encode,
-    hash_encode_affine, octree_resolutions)
+    hash_encode_affine, octree_resolutions, static_hash_encode)
 from shacira_tpu_torch.models.latent_decoders import (
     HierarchicalLatentDecoderConfig, LatentDecoderConfig,
     MultiLatentDecoderConfig, hierarchical_latent_decoder_apply,
@@ -201,12 +201,14 @@ def interpolate(params: dict, cfg: LatentGridConfig, coords: torch.Tensor, *,
                 use_sga: bool = False, temperature: float = 1.0,
                 sga_u: Optional[torch.Tensor] = None,
                 decoded: Optional[torch.Tensor] = None,
-                affine=None,
+                affine=None, static_plan=None,
                 lod_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Multiscale features at ``coords`` [..., dim] -> [..., output_dim].
 
     ``affine`` (z, matrix, shift) takes the fused encode; else ``decoded``
-    (a pre-decoded feature table) or a fresh decode of the codebook.
+    (a pre-decoded feature table) or a fresh decode of the codebook,
+    interpolated at ``coords`` or, with ``static_plan`` ((meta, arrays) of
+    ``hashgrid.build_static_plan`` for these coords), through the plan.
     ``lod_mask`` [num_lods] 0/1 scales each LOD's features."""
     lead = coords.shape[:-1]
     coords = coords.reshape(-1, coords.shape[-1])
@@ -217,7 +219,11 @@ def interpolate(params: dict, cfg: LatentGridConfig, coords: torch.Tensor, *,
         if decoded is None:
             decoded = decode_codebook(params, cfg, use_sga=use_sga,
                                       temperature=temperature, sga_u=sga_u)
-        feats = hash_encode(coords, decoded, cfg.spec)    # [N, L, F]
+        if static_plan is not None:
+            meta, arrays = static_plan
+            feats = static_hash_encode(arrays, decoded, meta)
+        else:
+            feats = hash_encode(coords, decoded, cfg.spec)    # [N, L, F]
     feats = _mask_lods(feats, lod_mask)
     if cfg.multiscale_type == 'cat':
         out = feats.reshape(feats.shape[0], -1)

@@ -65,11 +65,14 @@ def neural_image_rgb(params: dict, cfg: NeuralImageConfig,
                      temperature: float = 1.0,
                      sga_u: Optional[torch.Tensor] = None,
                      decoded: Optional[torch.Tensor] = None, affine=None,
+                     static_plan=None,
                      lod_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """coords [N, 2] in [-1, 1] -> rgb [N, 3]."""
+    """coords [N, 2] in [-1, 1] -> rgb [N, 3]; ``static_plan`` as in
+    ``latent_grid.interpolate``."""
     feats = lg.interpolate(params['grid'], cfg.grid, coords, use_sga=use_sga,
                            temperature=temperature, sga_u=sga_u,
-                           decoded=decoded, affine=affine, lod_mask=lod_mask)
+                           decoded=decoded, affine=affine,
+                           static_plan=static_plan, lod_mask=lod_mask)
     if cfg.pos_embed_dim:
         if cfg.pos_embedder == 'positional':
             emb = positional_embed(PositionalEmbedderConfig(

@@ -312,3 +312,94 @@ def hash_encode_affine(coords: torch.Tensor, z: torch.Tensor,
     """
     lods = None if lods is None else tuple(lods)
     return _HashEncodeAffine.apply(coords, z, scale, shift, spec, lods)
+
+
+# ---------------------------------------------------------------------------
+# Static-coordinate plan: with coordinates fixed for the whole training (an
+# image INR on its full pixel lattice), the corner indices and weights and
+# the transposed scatter pattern are fixed too.  The plan holds per LOD the
+# forward gather (idx, w) and, for every table row, the padded list of the
+# (sample, corner) pairs that touch it (src, srcw), so the backward is a
+# gather and a weighted sum: no scatter.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class StaticPlanMeta:
+    spec: HashGridSpec
+    num_coords: int
+    bucket_ks: Tuple[int, ...]   # padded contributors per row, per LOD
+
+
+def build_static_plan(coords, spec: HashGridSpec, device,
+                      pad_multiple: int = 8):
+    """The forward indices and the backward transpose plan of ``coords``
+    [N, dim] (array or tensor), built on the host.
+
+    Returns (meta, arrays), ``arrays`` lists per LOD of tensors on
+    ``device``:
+      idx  [N, C] int32   LOD-local corner indices;
+      w    [N, C] f32     interpolation weights;
+      src  [S, K] int32   flattened (n * C + c) contributors of each row;
+      srcw [S, K] f32     their weights (0 = padding).
+    """
+    coords = torch.as_tensor(np.asarray(coords, np.float32))
+    n = coords.shape[0]
+    arrays = {'idx': [], 'w': [], 'src': [], 'srcw': []}
+    bucket_ks = []
+    for lod, res in enumerate(spec.resolutions):
+        idx, w = _lod_corner_indices_and_weights(coords, res, spec)
+        idx = idx.numpy().astype(np.int32)
+        w = w.numpy()
+        size = spec.lod_sizes[lod]
+        flat_idx = idx.reshape(-1)
+        order = np.argsort(flat_idx, kind='stable')
+        sorted_idx = flat_idx[order]
+        counts = np.bincount(sorted_idx, minlength=size)
+        k = int(counts.max()) if counts.size else 0
+        k = max(pad_multiple, -(-k // pad_multiple) * pad_multiple)
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        src = np.zeros((size, k), np.int32)
+        srcw = np.zeros((size, k), np.float32)
+        pos_in_bucket = np.arange(len(sorted_idx)) - starts[sorted_idx]
+        src[sorted_idx, pos_in_bucket] = order.astype(np.int32)
+        srcw[sorted_idx, pos_in_bucket] = w.reshape(-1)[order]
+        for key, a in (('idx', idx), ('w', w), ('src', src),
+                       ('srcw', srcw)):
+            arrays[key].append(torch.as_tensor(a, device=device))
+        bucket_ks.append(k)
+    return StaticPlanMeta(spec, n, tuple(bucket_ks)), arrays
+
+
+class _StaticHashEncode(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, codebook, meta, arrays):
+        spec = meta.spec
+        feats = []
+        for lod in range(spec.num_lods):
+            first = spec.lod_first_idx[lod]
+            table = codebook[first:first + spec.lod_sizes[lod]].float()
+            feats.append(_interp(table, arrays['idx'][lod], arrays['w'][lod]))
+        ctx.meta, ctx.arrays = meta, arrays
+        ctx.cb_dtype = codebook.dtype
+        return torch.stack(feats, dim=1).to(codebook.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        spec, arrays = ctx.meta.spec, ctx.arrays
+        c = 2 ** spec.dim
+        g = g.float()                                     # [N, L, F]
+        grads = []
+        for lod in range(spec.num_lods):
+            src, srcw = arrays['src'][lod], arrays['srcw'][lod]   # [S, K]
+            gl = g[:, lod, :][torch.div(src.long(), c,
+                                        rounding_mode='floor')]   # [S,K,F]
+            grads.append(torch.sum(gl * srcw[..., None], dim=1))
+        return torch.cat(grads).to(ctx.cb_dtype), None, None
+
+
+def static_hash_encode(arrays: dict, codebook: torch.Tensor,
+                       meta: StaticPlanMeta) -> torch.Tensor:
+    """Multi-LOD interpolation [N, L, F] at the plan's coordinates.
+    Gradients flow to ``codebook`` only, through the plan's
+    gather-and-weighted-sum (no scatter)."""
+    return _StaticHashEncode.apply(codebook, meta, arrays)

@@ -6,8 +6,9 @@ and ``save_gif`` of ``shacira_tpu/render/offline.py``; ``save_png`` lives in
 the image app (``apps/train_image.py``, as in the JAX package) and is
 re-exported here.  The JAX package splits a PRNG key per ray batch;
 here every batch draws its march jitter from one ``torch.Generator``,
-seeded 0 per frame unless the caller passes one.  Overlay layers wait for
-item 14.
+seeded 0 per frame unless the caller passes one.  A turntable composites
+overlay layers (``render/overlay.py``) over each frame with its depth
+buffer.
 """
 from __future__ import annotations
 
@@ -89,10 +90,9 @@ def turntable(trace_fn: Callable, cfg: CameraConfig, num_angles: int = 16,
               generator: Optional[torch.Generator] = None, layers=None,
               device=None):
     """360-degree turntable: yields ``num_angles`` [H, W, 3] frames from
-    cameras on a circle of ``radius`` at height ``elevation``."""
-    if layers:
-        raise NotImplementedError('turntable overlay layers are not ported '
-                                  'yet (ROADMAP Queue A item 14)')
+    cameras on a circle of ``radius`` at height ``elevation``.  ``layers``
+    ({name: PrimitivesPack}) are composited over each frame with the
+    frame's depth buffer."""
     for a in range(num_angles):
         theta = 2 * np.pi * a / num_angles
         origin = np.asarray([radius * np.cos(theta), elevation,
@@ -100,7 +100,16 @@ def turntable(trace_fn: Callable, cfg: CameraConfig, num_angles: int = 16,
         ro, rd = lookat_rays(origin, target, cfg)
         out = render_rays(trace_fn, ro, rd, cfg, generator=generator,
                           device=device)
-        yield out['rgb'].reshape(cfg.height, cfg.width, 3)
+        frame = out['rgb'].reshape(cfg.height, cfg.width, 3)
+        if layers:
+            from shacira_tpu_torch.render.overlay import (PinholeCamera,
+                                                          draw_layers)
+            cam = PinholeCamera.from_lookat(origin, target, cfg)
+            depth = out.get('depth')
+            if depth is not None:
+                depth = depth.reshape(cfg.height, cfg.width)
+            frame = draw_layers(frame, cam, layers, depth=depth)
+        yield frame
 
 
 def _uint8(img01: np.ndarray) -> np.ndarray:

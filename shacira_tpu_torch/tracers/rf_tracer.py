@@ -50,8 +50,13 @@ and their ``num_steps`` samples go through :func:`_trace_paged`; with
 ``term_tau`` the crossings behind an estimated optical depth of
 ``term_tau`` are dropped first (:func:`crossing_term_mask`).
 
-Fields return (rgb, density) only (the JAX tracer's extra per-sample
-channels have no caller on the ported path).
+A field returns (rgb, density) or (rgb, density, extras), ``extras`` a
+dict of per-sample channels ``{name: [..., k]}``: the dense and the flat
+compact paths (the 'ray' and 'voxel' marches, and the flat segmented march)
+integrate each with the rgb's weights into an ``[R, k]`` buffer of that
+name, the compact path in the same ``segment_sum`` payload as rgb, alpha
+and depth; the paged trace's head returns (rgb, density) only, as in the
+JAX tracer.
 """
 from __future__ import annotations
 
@@ -238,8 +243,18 @@ def _segmented_cumsum_excl(tau: torch.Tensor,
     return _SegmentedCumsumExcl.apply(tau, ray_start)
 
 
+def _eval_field(field_fn, coords, dirs):
+    """A field's outputs as (color, density, extras dict): ``field_fn``
+    returns (color, density) or (color, density, extras)."""
+    out = field_fn(coords, dirs)
+    if len(out) == 3:
+        return out
+    color, density = out
+    return color, density, {}
+
+
 def volume_integrate_compact(color, density, deltas, depth, valid, ray_id,
-                             num_rays: int) -> dict:
+                             num_rays: int, extras=None) -> dict:
     """Compact-form masked volume integration.
 
     Rows are sorted by (ray, depth) over the valid prefix (the invariant of
@@ -247,9 +262,10 @@ def volume_integrate_compact(color, density, deltas, depth, valid, ray_id,
     :func:`volume_integrate` on a dense scatter-back of the rows.
 
     Args: color [K,3], density [K], deltas [K], depth [K], valid [K] bool,
-        ray_id [K] int, num_rays R.
-    Returns: dict rgb [R,3], alpha [R,1], depth [R,1], before background
-        compositing.
+        ray_id [K] int, num_rays R; extras: optional {name: [K, k]}
+        per-sample channels, summed as ``w * extra`` in the same payload.
+    Returns: dict rgb [R,3], alpha [R,1], depth [R,1] and one [R, k] entry
+        per extra channel, before background compositing.
     """
     tau = density * deltas * valid.to(density.dtype)
     ray_start = torch.cat([torch.ones((1,), dtype=torch.bool,
@@ -257,10 +273,16 @@ def volume_integrate_compact(color, density, deltas, depth, valid, ray_id,
                            ray_id[1:] != ray_id[:-1]])
     transmittance = torch.exp(-_segmented_cumsum_excl(tau, ray_start))
     w = transmittance * (1.0 - torch.exp(-tau))     # 0 exactly when invalid
-    payload = torch.cat([w[:, None] * color, w[:, None], (w * depth)[:, None]],
-                        dim=-1).float()
-    sums = segment_sum(ray_id, payload, num_rays)
-    return {'rgb': sums[:, :3], 'alpha': sums[:, 3:4], 'depth': sums[:, 4:5]}
+    cols = [w[:, None] * color, w[:, None], (w * depth)[:, None]]
+    extras = extras or {}
+    cols += [w[:, None] * v for v in extras.values()]
+    sums = segment_sum(ray_id, torch.cat(cols, dim=-1).float(), num_rays)
+    out = {'rgb': sums[:, :3], 'alpha': sums[:, 3:4], 'depth': sums[:, 4:5]}
+    off = 5
+    for name, v in extras.items():
+        out[name] = sums[:, off:off + v.shape[-1]]
+        off += v.shape[-1]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -803,11 +825,11 @@ def _trace_compact_flat(field_fn, rows: dict, flat_mask: torch.Tensor,
         src, valid, _ = _stride_compact(flat_mask, max_samples)
         ray = ray_of(src)
         coords, dirs = rows['samples'].reshape(-1, 3)[src], rays.dirs[ray]
-    color, density = field_fn(coords, dirs)
+    color, density, extras = _eval_field(field_fn, coords, dirs)
     with record_function('trace/integrate'):
         return volume_integrate_compact(
             color, density[..., 0], rows['deltas'].reshape(-1)[src],
-            rows['depth'].reshape(-1)[src], valid, ray, num_rays)
+            rows['depth'].reshape(-1)[src], valid, ray, num_rays, extras)
 
 
 def trace(field_fn, occ_state: dict, occ_cfg: occ.OccupancyGridConfig,
@@ -815,7 +837,8 @@ def trace(field_fn, occ_state: dict, occ_cfg: occ.OccupancyGridConfig,
     """March, evaluate and integrate.
 
     Args:
-        field_fn(coords [N,3], dirs [N,3]) -> (rgb [N,3], density [N,1]).
+        field_fn(coords [N,3], dirs [N,3]) -> (rgb [N,3], density [N,1])
+            or (rgb, density, {name: [N, k]}) with extra channels.
         jitter: U(0,1) tensor of :func:`march_jitter_shape` ([R,
             num_steps], [R, max_intersections, num_steps] for the voxel
             march, or (2,) for the lean march) or a ``torch.Generator``.
@@ -829,7 +852,8 @@ def trace(field_fn, occ_state: dict, occ_cfg: occ.OccupancyGridConfig,
             the encode's fine occupancy row, and ``occ_state`` holds
             ``'fine_dil'`` (:func:`fine_dilated_occupancy`).
     Returns: rgb [R,3] (background composited), alpha [R,1], depth [R,1],
-        hit [R] bool.
+        hit [R] bool, and one [R, k] buffer per extra channel of the field
+        (not on the paged trace).
     """
     R = rays.origins.shape[0]
     voxel = cfg.raymarch_type == 'voxel'
@@ -880,12 +904,18 @@ def trace(field_fn, occ_state: dict, occ_cfg: occ.OccupancyGridConfig,
             cfg.max_samples, R, rays)
     else:
         dirs = torch.broadcast_to(rays.dirs[:, None, :], samples.shape)
-        color, density = field_fn(samples, dirs)
+        color, density, extras = _eval_field(field_fn, samples, dirs)
         color = torch.where(mask[..., None], color, 0.0)
         density = torch.where(mask, density[..., 0], 0.0)
         rgb, alpha, depth = volume_integrate(color, density, m['deltas'],
                                              m['depth'], mask)
         out = {'rgb': rgb, 'alpha': alpha, 'depth': depth}
+        if extras:
+            w = integration_weights(density, m['deltas'], mask)
+            for name, v in extras.items():
+                out[name] = torch.sum(
+                    w[..., None] * torch.where(mask[..., None], v, 0.0),
+                    dim=-2)
     return _composite(out, cfg)
 
 

@@ -50,11 +50,19 @@ probes take their jitter as an argument; the trainer draws them from its
 
 Around training, as in the JAX package: validation keeps a host copy of
 the best parameters (``val_best_params``), ``save_every`` epochs write
-``log_dir/resume_state.ckpt`` (``utils/checkpoint.py``), :meth:`evaluate`
+``log_dir/resume_state.ckpt`` (``utils/checkpoint.py``), every
+``render_tb_every`` epochs ``render_view(0)`` of the validation split goes
+to the optional ``ExperimentLogger`` as ``render/view0`` (with the
+training scalars, and the validation metrics as records), :meth:`evaluate`
 returns PSNR, SSIM and, with ``SHACIRA_LPIPS_WEIGHTS`` set, LPIPS, and
 :meth:`size_report` gives the compressed size in kB from real arithmetic
-codestreams of the rounded latents.  Meshes and the TensorBoard renders
-wait for later slices (ROADMAP Queue A).
+codestreams of the rounded latents.
+
+Each training step and each prune runs under ``step_lock`` (a
+``utils/locks.FairRLock``: a waiting frame gets it before the next step),
+and ``iteration`` advances with every step: a viewer that renders under
+the same lock (``render/optimization_app.py``) reads whole steps only and
+knows which one it rendered.
 """
 from __future__ import annotations
 
@@ -83,6 +91,7 @@ from shacira_tpu_torch.ops import paged_hash as ph
 from shacira_tpu_torch.ops.image import psnr, ssim
 from shacira_tpu_torch.tracers import rf_tracer
 from shacira_tpu_torch.utils import checkpoint
+from shacira_tpu_torch.utils.locks import FairRLock
 
 
 @dataclass
@@ -119,6 +128,7 @@ class MultiviewTrainerConfig:
     valid_every: int = -1             # epochs between validations
     valid_views: int = 4
     save_every: int = -1              # epochs between resume_state.ckpt
+    render_tb_every: int = -1         # epochs between render/view0 images
 
 
 @dataclass
@@ -174,8 +184,11 @@ class MultiviewTrainer:
                  tracer_cfg: rf_tracer.RFTracerConfig, dataset,
                  num_rays: int, seed: int = 0, device=None,
                  val_dataset=None, log_dir: Optional[str] = None,
-                 structure: Optional[og.OctreeStructure] = None):
+                 structure: Optional[og.OctreeStructure] = None,
+                 logger=None):
         self.cfg = cfg
+        self.logger = logger                # optional ExperimentLogger
+        self.step_lock = FairRLock()
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
         self.grid_kind = nerf_mod.grid_kind(model_cfg.grid)
@@ -597,9 +610,10 @@ class MultiviewTrainer:
                 next_prune = ((self.iteration // cfg.prune_every) + 1) \
                     * cfg.prune_every
                 n = min(n, next_prune - self.iteration)
-            # chunks stop at the validation and checkpoint epochs
+            # chunks stop at the validation, checkpoint and render epochs
             e0 = self._epoch_of(it0)
-            for every in (cfg.valid_every, cfg.save_every):
+            for every in (cfg.valid_every, cfg.save_every,
+                          cfg.render_tb_every):
                 if every > 0:
                     nxt = (((e0 - 1) // every) + 1) * every \
                         * self.iters_per_epoch
@@ -617,22 +631,24 @@ class MultiviewTrainer:
             for i in range(n):
                 it = it0 + i
                 e = self._epoch_of(it)
-                with record_function('step/draws'):
-                    draws = self.draw_step(use_sga, refresh_noise=(
-                        (it - 1) % max(cfg.noise_freq, 1) == 0))
-                metrics = self.step(ro[i], rd[i], gt[i], draws,
-                    ent_lambda=self.entropy_reg_sched(e),
-                    temperature=self.temperature_sched(e),
-                    lr_ldec=self.ldec_lr_sched(e), use_sga=use_sga,
-                    lod_mask=None if masks is None else masks[i])
-            self.iteration += n
+                with self.step_lock:
+                    with record_function('step/draws'):
+                        draws = self.draw_step(use_sga, refresh_noise=(
+                            (it - 1) % max(cfg.noise_freq, 1) == 0))
+                    metrics = self.step(ro[i], rd[i], gt[i], draws,
+                        ent_lambda=self.entropy_reg_sched(e),
+                        temperature=self.temperature_sched(e),
+                        lr_ldec=self.ldec_lr_sched(e), use_sga=use_sga,
+                        lod_mask=None if masks is None else masks[i])
+                    self.iteration = it
             done += n
             if (cfg.prune_every > 0 and self.iteration > 1
                     and self.iteration % cfg.prune_every == 0):
-                self.prune()
-                if cfg.adaptive_budget:
-                    self._adapt_budget()
-            if log_fn:
+                with self.step_lock:
+                    self.prune()
+                    if cfg.adaptive_budget:
+                        self._adapt_budget()
+            if log_fn or self.logger is not None:
                 entry = {'iteration': self.iteration,
                          'epoch': self._epoch_of(self.iteration),
                          'loss': float(metrics['loss']),
@@ -644,23 +660,38 @@ class MultiviewTrainer:
                 if cfg.adaptive_budget and self.tracer_cfg.max_samples > 0:
                     entry['sample_budget'] = \
                         self.active_tracer_cfg.max_samples
-                log_fn(entry)
+                if self.logger is not None:
+                    for k in ('rgb_loss', 'psnr', 'occupancy'):
+                        self.logger.scalar(f'train/{k}', entry[k],
+                                           self.iteration)
+                if log_fn:
+                    log_fn(entry)
             self._post_chunk(log_fn)
         return {'iterations': self.iteration, 'elapsed': time.time() - t0}
 
     def _post_chunk(self, log_fn=None):
-        """At epoch boundaries: validation (``valid_every``) and the
-        resume-state checkpoint (``save_every``, into ``log_dir``)."""
+        """At epoch boundaries: validation (``valid_every``), the
+        ``render/view0`` image (``render_tb_every``, through the logger)
+        and the resume-state checkpoint (``save_every``, into
+        ``log_dir``)."""
         cfg = self.cfg
         if self.iteration % self.iters_per_epoch != 0:
             return
         e = self.iteration // self.iters_per_epoch
         if cfg.valid_every > 0 and e % cfg.valid_every == 0:
             m = self.validate()
+            if self.logger is not None:
+                self.logger.scalar('valid/psnr', m['psnr'], self.iteration)
+                self.logger.scalar('valid/ssim', m['ssim'], self.iteration)
             if log_fn:
                 log_fn({'epoch': e, 'valid_psnr': m['psnr'],
                         'valid_ssim': m['ssim'],
                         'best_val_psnr': self.best_val_psnr})
+        if (cfg.render_tb_every > 0 and e % cfg.render_tb_every == 0
+                and self.logger is not None):
+            d = self.val_dataset or self.dataset
+            self.logger.image('render/view0', self.render_view(0, dataset=d),
+                              self.iteration)
         if cfg.save_every > 0 and e % cfg.save_every == 0 and self.log_dir:
             checkpoint.save_trainer(
                 self, os.path.join(self.log_dir, 'resume_state.ckpt'))
@@ -677,9 +708,41 @@ class MultiviewTrainer:
             self.best_val_psnr = m['psnr']
             self.val_best_params = optim.tree_map(
                 lambda t: t.detach().to('cpu', copy=True), self.params)
+        if self.logger is not None:
+            self.logger.record({'iteration': self.iteration, **m})
         return m
 
     # ------------------------------------------------------------------
+    @property
+    def eval_tracer_cfg(self) -> rf_tracer.RFTracerConfig:
+        """The base tracer config of renders: ``fine_mode='kernel'`` renders
+        as ``'deferred'`` (rendering queries the fine occupancy itself)."""
+        if self.tracer_cfg.fine_mode == 'kernel':
+            return replace(self.tracer_cfg, fine_mode='deferred')
+        return self.tracer_cfg
+
+    @torch.no_grad()
+    def eval_field_fn(self, params=None, lod_mask=None):
+        """The field over ``params`` (default: the trainer's) in eval mode
+        for renders outside the paged trace: the codebook decoded once
+        (rounded latents, LODs masked by the device tensor ``lod_mask``),
+        or an alternative backbone's eval mode (VQAD's argmax lookup) on
+        the trainer's structure."""
+        params = params if params is not None else self.params
+        mcfg = self.model_cfg
+        if not self.is_latent:
+            def field_fn(coords, dirs):
+                return nerf_mod.nerf_rgba(params, mcfg, coords, dirs,
+                                          structure=self.structure_tables,
+                                          training=False)
+            return field_fn
+        decoded = lg.decode_codebook(params['grid'], mcfg.grid)
+
+        def field_fn(coords, dirs):
+            return nerf_mod.nerf_rgba(params, mcfg, coords, dirs,
+                                      decoded=decoded, lod_mask=lod_mask)
+        return field_fn
+
     @torch.no_grad()
     def render_view(self, view_idx: int, ray_batch: int = 4096,
                     generator: Optional[torch.Generator] = None,
@@ -691,10 +754,7 @@ class MultiviewTrainer:
         [num_lods] masks LODs."""
         d = dataset if dataset is not None else self.dataset
         params = params if params is not None else self.params
-        mcfg, tcfg = self.model_cfg, self.tracer_cfg
-        if tcfg.fine_mode == 'kernel':
-            # rendering queries the fine occupancy itself
-            tcfg = replace(tcfg, fine_mode='deferred')
+        mcfg, tcfg = self.model_cfg, self.eval_tracer_cfg
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(0)
@@ -706,18 +766,8 @@ class MultiviewTrainer:
             parts = lg.affine_parts(params['grid'], mcfg.grid)
             split = self._encode_split(params, parts, lod_mask=lod_mask)
             field_fn = None
-        elif not self.is_latent:
-            # eval mode: VQAD looks its argmax up
-            def field_fn(coords, dirs):
-                return nerf_mod.nerf_rgba(params, mcfg, coords, dirs,
-                                          structure=self.structure_tables,
-                                          training=False)
         else:
-            decoded = lg.decode_codebook(params['grid'], mcfg.grid)
-
-            def field_fn(coords, dirs):
-                return nerf_mod.nerf_rgba(params, mcfg, coords, dirs,
-                                          decoded=decoded, lod_mask=lod_mask)
+            field_fn = self.eval_field_fn(params, lod_mask=lod_mask)
 
         npix = d.rgb.shape[1]
         out = np.zeros((npix, 3), np.float32)

@@ -1,10 +1,12 @@
 """Carry parameters and Adam state over from the JAX package.
 
 The JAX trees (``grid/{codebook, latent_dec/{layers[0]/{scale, shift}, div},
-prob_model/...}``, ``decoder_density``, ``decoder_color``) arrive as nested
-dicts and lists of numpy arrays (``jax.tree.map(np.asarray, tree)``).  The
-port keeps the same layout, MLP weights included (``[din, dout]``, applied
-as ``x @ w``), so the conversion only moves arrays into tensors.
+prob_model/...}``, ``decoder_density``, ``decoder_color``; a
+``BitEstimatorN``'s ``f1..f4/{w, m, b, g}``; a FiLM conditioner's
+``mlp/layers``) arrive as nested dicts and lists of numpy arrays
+(``jax.tree.map(np.asarray, tree)``).  The port keeps the same layout, MLP
+weights included (``[din, dout]``, applied as ``x @ w``), so the
+conversion only moves arrays into tensors.
 """
 from __future__ import annotations
 

@@ -5,10 +5,10 @@ generated Blender scene (CPU), as a user drives it: train with
 ``--profile`` and ``--metrics-only``; and the offline renderer
 (``render/offline.py``) against the JAX package's.
 """
+import functools
 import json
 import logging
 import os
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -31,6 +31,16 @@ FLAGS = ['--epochs', '4', '--chunk-size', '6', '--num-lods', '3',
          '--ldecode-enabled', 'True', '--entropy-reg', '1e-4',
          '--render-batch', '128', '--log-every', '-1', '--device', 'cpu',
          '--num-angles', '3']
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _no_tensorboard():
+    """The app's logger without TensorBoard: its writer imports TensorFlow
+    where that is installed (~25 s)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(train_nerf, 'ExperimentLogger', functools.partial(
+            train_nerf.ExperimentLogger, use_tensorboard=False))
+        yield
 
 
 def _argv(scene, log_dir, *extra):
@@ -201,13 +211,29 @@ def test_turntable_matches_jax():
         np.testing.assert_allclose(g, np.asarray(w), rtol=1e-6, atol=1e-7)
 
 
-def test_overlay_layers_raise():
-    with pytest.raises(NotImplementedError, match='item 14'):
-        next(toffline.turntable(lambda r, g: {}, toffline.CameraConfig(),
-                                layers={'axes': None}, device='cpu'))
-    with pytest.raises(NotImplementedError, match='item 14'):
-        train_nerf.render_turntable(None, SimpleNamespace(
-            overlay_layers=True))
+def test_overlay_layers_raise(scene):
+    """``--overlay-layers true`` draws the wireframe of the occupied cells
+    and the axes gizmo over each turntable frame (the rasterizer equals the
+    JAX package's: tests/test_torch_overlay.py); a layer that is no
+    PrimitivesPack raises."""
+    from shacira_tpu_torch import config as cfg_mod
+    from shacira_tpu_torch.datasets.nerf_synthetic import load_nerf_synthetic
+    args = cfg_mod.parse_args(cfg_mod.build_nerf_parser(),
+                              _argv(scene, 'unused'))
+    trainer = train_nerf.build_trainer(
+        args, load_nerf_synthetic(scene, split='train'))
+    plain = train_nerf.render_turntable(trainer, args, num_angles=2)
+    args.overlay_layers = True
+    drawn = train_nerf.render_turntable(trainer, args, num_angles=2)
+    for p, d in zip(plain, drawn):
+        assert p.shape == d.shape == (16, 16, 3)
+        changed = np.any(p != d, axis=-1)
+        assert changed.any() and not changed.all()
+    with pytest.raises(AttributeError):
+        next(toffline.turntable(
+            lambda r, g: {'rgb': torch.ones_like(r.origins)},
+            toffline.CameraConfig(width=4, height=4),
+            layers={'axes': None}, device='cpu'))
 
 
 def test_save_png_and_gif(tmp_path):

@@ -8,6 +8,7 @@ first moments 2e-3 relative / 1e-4 of each leaf's largest entry, the
 updated params 1e-5 absolute; the pruned density 1e-5 relative and the
 occupancy equal; a rendered view 1e-5; the size report's bits equal.  The
 JAX step's march jitter and prune jitter are handed to the port."""
+import functools
 import json
 import os
 
@@ -41,6 +42,16 @@ from shacira_tpu_torch.utils.convert import (  # noqa: E402
 from tools.make_synthetic_data import write_nerf_scene  # noqa: E402
 
 from tests.test_torch_step import _leaves, _scene, _tleaves  # noqa: E402
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _no_tensorboard():
+    """The app's logger without TensorBoard: its writer imports TensorFlow
+    where that is installed (~25 s)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(train_nerf, 'ExperimentLogger', functools.partial(
+            train_nerf.ExperimentLogger, use_tensorboard=False))
+        yield
 
 OCTREE = dict(feature_dim=2, base_lod=2, num_lods=2, feature_std=0.2,
               feature_bias=0.1)

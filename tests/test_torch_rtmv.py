@@ -9,6 +9,7 @@ occupancy exactly (the same numpy code on the same files); the scenes the
 two writers produce byte for byte.
 """
 import filecmp
+import functools
 import json
 import logging
 import os
@@ -27,6 +28,16 @@ from shacira_tpu_torch.ops import exr as texr  # noqa: E402
 from tools.make_synthetic_data import write_rtmv_scene  # noqa: E402
 
 import chip_smoke  # noqa: E402
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _no_tensorboard():
+    """The app's logger without TensorBoard: its writer imports TensorFlow
+    where that is installed (~25 s)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(train_nerf, 'ExperimentLogger', functools.partial(
+            train_nerf.ExperimentLogger, use_tensorboard=False))
+        yield
 
 from tests.test_torch_step import GRID, LDEC, NERF, TRAIN  # noqa: E402
 

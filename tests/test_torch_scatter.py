@@ -153,6 +153,29 @@ def test_scatter_kernel_matches_plain_on_card(cuda_device, n, t, f):
 
 
 @pytest.mark.cuda
+def test_segment_sum_at_the_extras_width_on_card(cuda_device):
+    """B1(b) with the tracer's extra channels: per-ray sums of 5 + 3
+    columns, 1,048,576 rows into 4096 rays, ids sorted over the valid
+    prefix and a zero-weight tail on ray 0 (as the compact trace gives
+    them); one launch, within 1e-5 of the largest sum."""
+    rng = np.random.RandomState(8)
+    n, rays, valid = 1 << 20, 4096, 900_000
+    ids = np.zeros(n, np.int32)
+    ids[:valid] = np.sort(rng.randint(0, rays, valid))
+    vals = rng.randn(n, 8).astype(np.float32)
+    vals[valid:] = 0.0
+    idx_t = torch.as_tensor(ids, device=cuda_device)
+    vals_t = torch.as_tensor(vals, device=cuda_device)
+    before = scatter.segment_sum.launches
+    got = scatter.segment_sum(idx_t, vals_t, rays)
+    torch.cuda.synchronize()
+    assert scatter.segment_sum.launches == before + 1
+    want = scatter.scatter_add_plain(idx_t, vals_t, rays)
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
 def test_scatter_kernel_drops_out_of_range_on_card(cuda_device):
     t = 300
     idx, vals = _inputs(6, 4096, t, 3)

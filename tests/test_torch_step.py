@@ -179,6 +179,14 @@ def test_port_never_imports_jax_or_the_jax_package():
     for base, _, names in os.walk(os.path.join(ROOT, 'shacira_tpu_torch')):
         files += [os.path.join(base, n) for n in names if n.endswith('.py')]
     assert len(files) > 15
+    for mod in ('core/channel_fn.py', 'core/renderbuffer.py',
+                'core/colors.py', 'core/transforms.py', 'core/primitives.py',
+                'render/overlay.py', 'render/web_viewer.py',
+                'render/optimization_app.py', 'utils/debugger.py',
+                'framework/state.py', 'ops/image_processing.py',
+                'models/conditioners.py', 'models/nefs/spc_field.py',
+                'datasets/random_view.py'):
+        assert os.path.join(ROOT, 'shacira_tpu_torch', mod) in files, mod
 
     def banned(mod):
         return any(mod == b or mod.startswith(b + '.')
@@ -242,7 +250,7 @@ def test_config_rejects_unknown_keys_and_unported_options(tmp_path):
     with pytest.raises(ValueError):
         tconfig.parse_args(tconfig.build_nerf_parser(), ['--config', str(bad)])
     # an unknown grid type and a 2D octree raise as in the JAX package
-    # (config.py:285-286, :302-303); TensorBoard renders are item 14
+    # (config.py:285-286, :302-303)
     args = tconfig.parse_args(tconfig.build_nerf_parser(),
                               ['--grid-type', 'NoSuchGrid'])
     with pytest.raises(ValueError, match='Unknown grid_type'):
@@ -251,10 +259,10 @@ def test_config_rejects_unknown_keys_and_unported_options(tmp_path):
                               ['--grid-type', 'OctreeGrid'])
     with pytest.raises(ValueError, match='3D-only'):
         tconfig.build_grid_config(args, resolution_dim=2)
+    # the TensorBoard renders are ported: render_tb_every passes through
     args = tconfig.parse_args(tconfig.build_nerf_parser(),
                               ['--render-tb-every', '5'])
-    with pytest.raises(NotImplementedError, match='item 14'):
-        tconfig.build_nerf_trainer_config(args)
+    assert tconfig.build_nerf_trainer_config(args).render_tb_every == 5
     # checkpoints are ported: resume, pretrained and save_every pass
     args = tconfig.parse_args(tconfig.build_nerf_parser(),
                               ['--resume', 'true', '--save-every', '1',
