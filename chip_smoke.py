@@ -165,7 +165,22 @@ Phases, each of which must pass (exit code 1 otherwise):
                viewer, frame, JPEG-encode and overlay times, and an idle
                full frame profiled (after serving).  Phase 2 also
                checks and times B1(b) at that width.  No profile runs
-               while the viewer serves.
+               while the viewer serves;
+23. parallel -- a one-rank NCCL process group (``file://`` rendezvous,
+               a timeout) and the mesh over it: the lego config through
+               the config reader on the sphere scene of phase 4, flat and
+               then paged (``PAGED_FLAGS``), trained 4 steps without the
+               group and 4 steps on the mesh (``shard_table_work``: the
+               SGA quantize, rate loss and the codebook's Adam rows on the
+               rank's rows, one autograd all-gather of the quantized rows,
+               gradients mean-all-reduced) from the same seed; losses
+               within rtol 1e-4 and Adam first moments within 1e-3 of
+               each leaf's largest, as in phase 3; the step with and
+               without the group (host clock, steps 2-4), the bytes of
+               each collective of a step, and one mean all-reduce of a
+               gradient of the codebook's size (CUDA events); B1(a) and
+               B1(b) on the flat mesh run, B1(b), B2 and B3 on the paged
+               one; the group destroyed at the end.
 
 Every profile fails the run when its stage ranges hold more than 2 % of
 the busy time beyond it (a negative backward remainder).
@@ -3214,6 +3229,183 @@ def _drive_viewer(dev, scene, extra):
     return launches, extras_launches, first[0]
 
 
+PARALLEL_STEPS = 4        # per trainer: 1 warm-up step, then 3 timed
+ALL_REDUCE_REPS = 20
+# the collectives of torch.distributed that parallel/mesh.py calls, and
+# which of each call's tensors is the data it moves
+COLLECTIVES = (('all_reduce', 0), ('broadcast', 0),
+               ('all_gather_into_tensor', 0), ('reduce_scatter_tensor', 1))
+
+
+class _CollectiveBytes:
+    """Within the ``with`` block, ``calls`` lists (collective, bytes) of
+    every collective call (the bytes of its output, or of its input for a
+    reduce-scatter)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.calls, self._saved = [], []
+        for name, arg in COLLECTIVES:
+            fn = getattr(dist, name)
+            self._saved.append((name, fn))
+
+            def counted(*a, _fn=fn, _name=name, _arg=arg, **k):
+                t = a[_arg]
+                self.calls.append((_name, t.numel() * t.element_size()))
+                return _fn(*a, **k)
+            setattr(dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, fn in self._saved:
+            setattr(dist, name, fn)
+
+    def per_call(self):
+        out = {}
+        for name, nbytes in self.calls:
+            out.setdefault(name, []).append(nbytes)
+        return out
+
+
+def _drive_parallel(mesh, paged: bool):
+    """The lego config (flat, or paged with ``PAGED_FLAGS``) on the sphere
+    scene: a trainer without a mesh and one on ``mesh``, from the same
+    seed (so the same parameters, draws and ray batches), each
+    ``PARALLEL_STEPS`` steps through ``train``; their per-step losses
+    within rtol 1e-4 and their Adam first moments within 1e-3 of each
+    leaf's largest, as in phase 3 (B1's atomics sum in another order
+    every run).  Returns the mesh run's launches, counted from just
+    before its first step to just after its last, and the codebook's
+    rows."""
+    import torch
+    from shacira_tpu_torch import optim
+    from shacira_tpu_torch.apps.train_nerf import build_trainer
+    args = lego_args('cuda', paged)
+    data = sphere_scene(num_views=24, res=SCENE_RES)
+    layout = 'paged' if paged else 'flat'
+    runs = {}
+    for name, m in (('without', None), ('with', mesh)):
+        trainer = build_trainer(args, data, mesh=m)
+        if trainer.use_paged != paged:
+            raise AssertionError('the parallel trainer took the wrong path')
+        if m is not None and not (trainer.shard_table_work
+                                  and trainer.mesh is m):
+            raise AssertionError('the codebook table work is not sharded')
+        losses = []
+        step = trainer.step
+
+        def recorded(*a, _step=step, _losses=losses, **k):
+            out = _step(*a, **k)
+            _losses.append(out['loss'])
+            return out
+        trainer.step = recorded
+        torch.cuda.synchronize()
+        _reset_launches()
+        with _CollectiveBytes() as coll:
+            trainer.train(num_iterations=1)              # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(num_iterations=PARALLEL_STEPS - 1)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (PARALLEL_STEPS - 1)
+        launches = _launch_counts()
+        runs[name] = dict(
+            step_ms=step_ms, losses=[float(x) for x in losses],
+            launches=launches, collectives=coll.per_call(),
+            mu={p: t.detach().cpu() for p, t in
+                optim.tree_leaves_with_path(trainer.opt_state['mu'])},
+            params={p: t.detach().cpu() for p, t in
+                    optim.tree_leaves_with_path(trainer.params)},
+            table_rows=trainer.params['grid']['codebook'].shape[0])
+        del trainer
+        torch.cuda.empty_cache()
+    a, b = runs['without'], runs['with']
+    loss_rel = max(abs(x - y) / abs(x) for x, y in zip(a['losses'],
+                                                        b['losses']))
+    mu_rel, mu_path = 0.0, None
+    for path, m in b['mu'].items():
+        scale = float(a['mu'][path].abs().max())
+        if scale == 0.0:           # frozen leaves keep zero moments
+            continue
+        rel = float((m - a['mu'][path]).abs().max()) / scale
+        if rel >= mu_rel:
+            mu_rel, mu_path = rel, '/'.join(path)
+    param_abs = max(float((t - a['params'][p]).abs().max())
+                    for p, t in b['params'].items())
+    coll = {k: {'calls': len(v), 'bytes': sum(v)}
+            for k, v in b['collectives'].items()}
+    result = {'layout': layout, 'world_size': mesh.size,
+              'steps': PARALLEL_STEPS,
+              'step_ms_without_group': a['step_ms'],
+              'step_ms_with_group': b['step_ms'],
+              'step_ms_of_steps': [2, PARALLEL_STEPS],
+              'losses_with_group': b['losses'],
+              'loss_max_rel_diff': loss_rel,
+              'adam_mu_max_rel_diff': mu_rel, 'adam_mu_worst_leaf': mu_path,
+              'param_max_abs_diff': param_abs,
+              'codebook_rows': b['table_rows'],
+              'collective_bytes_a_step': coll,
+              'launches_with_group': b['launches']}
+    log('  parallel: ' + json.dumps(result))
+    if not all(math.isfinite(x) for x in a['losses'] + b['losses']):
+        raise AssertionError('non-finite training loss')
+    if not loss_rel <= 1e-4:
+        raise AssertionError(f'{layout}: the step with the group disagrees '
+                             f'with the step without it (loss)')
+    if not mu_rel <= 1e-3:
+        raise AssertionError(f'{layout}: the step with the group disagrees '
+                             f'with the step without it ({mu_path})')
+    want = (('segment_sum', 'paged_gather', 'paged_scatter') if paged
+            else ('scatter_add', 'segment_sum'))
+    quiet = [w for w in want if b['launches'][w] <= 0]
+    if quiet:
+        raise AssertionError(f'{layout}: not launched with the group: '
+                             f'{quiet}')
+    return b['launches'], b['table_rows']
+
+
+def phase_parallel() -> dict:
+    """A one-rank NCCL process group (``file://`` rendezvous in a temporary
+    directory, a timeout) around the flat and the paged lego steps
+    (:func:`_drive_parallel`), then one mean all-reduce of a gradient of
+    the codebook's size timed with CUDA events; the group is destroyed at
+    the end.  Returns the launches of the two mesh runs, summed."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from shacira_tpu_torch.parallel import mesh as pmesh
+    from shacira_tpu_torch.parallel import multihost
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # initialize's set-up past its one-process no-op: the GPU, the
+        # rendezvous, the timeout
+        multihost._init_group(f'file://{os.path.join(tmp, "rendezvous")}',
+                              1, 0, 'nccl', multihost.TIMEOUT_S)
+        try:
+            if dist.get_backend() != 'nccl':
+                raise AssertionError(f'backend {dist.get_backend()}')
+            mesh = pmesh.make_mesh()
+            log(f'  process group: backend {dist.get_backend()}, world size '
+                f'{mesh.size}, rank {mesh.rank}, device {mesh.device}')
+            for paged in (False, True):
+                counts, table_rows = _drive_parallel(mesh, paged)
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+            g = torch.rand((table_rows, 1), device=mesh.device)
+            ms = time_ms(lambda: pmesh.all_reduce_mean_(mesh, [g]),
+                         ALL_REDUCE_REPS)
+            log('  parallel: ' + json.dumps({
+                'mean_all_reduce_of_codebook_gradient': {
+                    'rows': table_rows, 'bytes': g.numel() * 4, 'ms': ms,
+                    'world_size': mesh.size}}))
+            del g
+        finally:
+            dist.destroy_process_group()
+    return launches
+
+
 RANGES = ('step/draws', 'step/recalib', 'step/decode', 'trace/march',
           'trace/group', 'trace/compact', 'field/encode',
           'field/paged_encode', 'field/finish', 'field/head',
@@ -3459,6 +3651,9 @@ def main(argv=None) -> int:
     launches['sdf'] = phase_sdf(dev, rows)
     log('phase viewer:')
     launches.update(phase_viewer('cuda', rows))
+    torch.cuda.empty_cache()
+    log('phase parallel:')
+    launches['parallel'] = phase_parallel()
     # each kernel's launches come from the path it serves: B1 from the flat
     # lego run, B2 and B3 from the paged one (which also runs B1(b)), B2
     # with its occupancy row from the 'kernel' run, V1 and B1(a) at V8's
@@ -3538,6 +3733,11 @@ def main(argv=None) -> int:
     for wrapper in ('scatter_add', 'segment_sum'):
         if launches['viewer'][wrapper] <= 0:
             missing.append(f'{wrapper} (viewer path)')
+    # the flat and paged steps inside the process group
+    for wrapper in ('scatter_add', 'segment_sum', 'paged_gather',
+                    'paged_scatter'):
+        if launches['parallel'][wrapper] <= 0:
+            missing.append(f'{wrapper} (parallel path)')
     if missing:
         raise AssertionError(f'kernels not launched on the main path: '
                              f'{missing}')

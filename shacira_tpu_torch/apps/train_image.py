@@ -44,12 +44,15 @@ def save_png(path: str, img01: np.ndarray) -> None:
     Image.fromarray(arr).save(path)
 
 
-def build_trainer(args, ds, log_dir=None, logger=None) -> ImageTrainer:
-    """Trainer for parsed args on one image's dataset."""
+def build_trainer(args, ds, log_dir=None, logger=None,
+                  mesh=None) -> ImageTrainer:
+    """Trainer for parsed args on one image's dataset (data-parallel over
+    ``mesh``, on its device, when given)."""
     return ImageTrainer(cfg_mod.build_image_trainer_config(args),
                         cfg_mod.build_image_model_config(args), ds,
                         seed=args.seed, log_dir=log_dir, logger=logger,
-                        device=args.device)
+                        device=None if mesh is not None else args.device,
+                        mesh=mesh)
 
 
 def _load_params(trainer, path: str) -> dict:
@@ -58,8 +61,10 @@ def _load_params(trainer, path: str) -> dict:
     return params
 
 
-def train_one_image(args, ds, log_dir_cur: str, logger=None):
-    trainer = build_trainer(args, ds, log_dir_cur, logger)
+def train_one_image(args, ds, log_dir_cur: str, mesh=None, logger=None):
+    """Train one image; with ``mesh`` (``parallel/mesh.py``) every rank
+    calls this and rank 0 writes the files."""
+    trainer = build_trainer(args, ds, log_dir_cur, logger, mesh)
     if args.pretrained:
         trainer.set_params(_load_params(trainer, args.pretrained),
                            trainer.opt_state)
@@ -85,6 +90,8 @@ def train_one_image(args, ds, log_dir_cur: str, logger=None):
     with trace_to(os.path.join(log_dir_cur, 'profile')
                   if args.profile else None):
         out = trainer.train(epochs=max(0, remaining), log_fn=log_entry)
+    if not trainer.is_writer:
+        return out
     if not args.metrics_only:
         save_png(os.path.join(log_dir_cur, 'predicted.png'),
                  trainer.render(trainer.best_params))

@@ -47,15 +47,16 @@ log = logging.getLogger('shacira_tpu_torch')
 
 
 def build_trainer(args, data, val_data=None, log_dir=None,
-                  logger=None) -> MultiviewTrainer:
-    """Trainer for parsed args on loaded data."""
+                  logger=None, mesh=None) -> MultiviewTrainer:
+    """Trainer for parsed args on loaded data (data-parallel over ``mesh``,
+    on its device, when given)."""
     return MultiviewTrainer(
         cfg_mod.build_nerf_trainer_config(args),
         cfg_mod.build_nerf_model_config(args),
         cfg_mod.build_tracer_config(args), data,
         num_rays=args.num_rays_sampled_per_img, seed=args.seed,
-        device=args.device, val_dataset=val_data, log_dir=log_dir,
-        logger=logger)
+        device=None if mesh is not None else args.device,
+        val_dataset=val_data, log_dir=log_dir, logger=logger, mesh=mesh)
 
 
 def _install_params(trainer, path: str):

@@ -8,13 +8,21 @@ is torch Adam's (bias-corrected moments; 'adam' adds L2 to the gradient,
 'adamw' decays the parameter).  Unlike the JAX package the update runs in
 place on the parameter and moment tensors, which saves a copy of the
 7.9M-row codebook and its moments each step.
+
+Across the ranks of a data-parallel mesh (``parallel/mesh.py``),
+:func:`adam_update_mesh` averages the gradients first; a row-sharded leaf
+(the codebook under the trainers' ``shard_table_work``) keeps its moments
+on this rank's ``T/n`` rows only, updates those rows and all-gathers them
+back into the replicated table.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from shacira_tpu_torch.parallel import mesh as pmesh
 
 
 def tree_leaves_with_path(tree, prefix=()) -> Iterator[Tuple[tuple, object]]:
@@ -71,12 +79,16 @@ def adam_update(grads: Dict[tuple, torch.Tensor], state: dict, params,
                 labels: Dict[tuple, str], lr: Dict[str, float],
                 weight_decay: Dict[str, float], b1: float = 0.9,
                 b2: float = 0.999, eps: float = 1e-8,
-                decoupled: bool = False):
+                decoupled: bool = False,
+                rows: Optional[Dict[tuple, slice]] = None):
     """One Adam step in place.
 
     ``grads`` maps a leaf path to its gradient (a missing path counts as a
     zero gradient, as JAX's grad of an unused parameter is zero).  Groups
-    labelled 'frozen' or absent from ``lr`` stay untouched."""
+    labelled 'frozen' or absent from ``lr`` stay untouched.  A leaf in
+    ``rows`` updates only those rows: its gradient and moments hold just
+    them."""
+    rows = rows or {}
     state['count'] += 1
     count = state['count']
     # bias corrections in float32, as the JAX package computes them
@@ -88,6 +100,8 @@ def adam_update(grads: Dict[tuple, torch.Tensor], state: dict, params,
         lbl = labels[path]
         if lbl == 'frozen' or lbl not in lr:
             continue
+        if path in rows:
+            p = p[rows[path]]
         g = grads.get(path)
         g = torch.zeros_like(p) if g is None else g.to(p.dtype)
         glr = lr[lbl]              # float or 0-d tensor (no host sync)
@@ -101,3 +115,47 @@ def adam_update(grads: Dict[tuple, torch.Tensor], state: dict, params,
         if wd and decoupled:
             step = step + glr * wd * p
         p.sub_(step)
+
+
+@torch.no_grad()
+def adam_update_mesh(grads: Dict[tuple, torch.Tensor], state: dict, params,
+                     labels: Dict[tuple, str], lr: Dict[str, float],
+                     weight_decay: Dict[str, float], mesh: pmesh.Mesh,
+                     row_paths=(), **kw):
+    """:func:`adam_update` of the gradient averaged over the mesh's ranks,
+    each rank passing its own.
+
+    Every leaf's gradient is mean-all-reduced (one flat buffer), except a
+    leaf of ``row_paths`` [T, ...], whose moments hold this rank's
+    ``row_sharding(mesh, T)`` rows: its gradient is either the whole
+    table's (reduce-scattered to those rows) or already those rows summed
+    over the ranks (the backward of ``mesh.all_gather_rows``), and over n
+    it is their mean.  Adam updates those rows, which are then
+    all-gathered into the table, so every rank ends with the same
+    parameters.  The gradient tensors are reduced in place."""
+    grads = dict(grads)
+    leaves = dict(tree_leaves_with_path(params))
+    flat = []
+    for path, p in leaves.items():
+        if (path in row_paths or labels[path] == 'frozen'
+                or labels[path] not in lr):
+            continue
+        if grads.get(path) is None:
+            grads[path] = torch.zeros_like(p)
+        flat.append(grads[path])
+    pmesh.all_reduce_mean_(mesh, flat)
+    rows = {}
+    for path in row_paths:
+        p = leaves[path]
+        rows[path] = pmesh.row_sharding(mesh, p.shape[0])
+        g = grads.get(path)
+        if g is None:
+            g = torch.zeros_like(p[rows[path]])
+        elif g.shape[0] == p.shape[0] and mesh.size > 1:
+            g = pmesh.reduce_scatter_rows(mesh, g)
+        grads[path] = g / mesh.size
+    adam_update(grads, state, params, labels, lr, weight_decay, rows=rows,
+                **kw)
+    for path, sl in rows.items():
+        p = leaves[path]
+        pmesh.all_gather_rows(mesh, p[sl].clone(), out=p)

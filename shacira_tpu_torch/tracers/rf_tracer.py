@@ -61,7 +61,7 @@ JAX tracer.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 import torch.nn.functional as F
@@ -158,6 +158,37 @@ def _hash01(seed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     x = _mul_u32(x, 0x846CA68B)
     x = x ^ (x >> 16)
     return x.to(torch.float32) * (2.0 ** -32)
+
+
+def per_device_cfg(cfg: RFTracerConfig, n: int) -> RFTracerConfig:
+    """Tracer config of one rank of a mesh of ``n`` that traces its ``R/n``
+    rays on its own.
+
+    Rays are independent, so each rank runs the whole trace -- march,
+    budgeted compactions, segment grouping, B2/B3, compact integration --
+    on its rays with every global row budget divided by ``n``; ray and
+    segment ids, and the lean march's hash counter, are the rank's own.
+    Per-ray quantities (num_steps, max_intersections, segment geometry)
+    are unchanged.  With budgets ample enough that nothing truncates, the
+    ranks integrate exactly the samples of one trace of all the rays;
+    under budget pressure the stride drop applies per rank instead of
+    globally (the same uniform drop, rank-local).  A budget <= 0 passes
+    through.
+
+    Raises ValueError when a budget does not divide ``n`` (the trainer
+    then traces the whole batch on every rank)."""
+    def div(v: int, name: str) -> int:
+        if v <= 0:
+            return v
+        if v % n:
+            raise ValueError(f'{name}={v} must divide the mesh size {n} '
+                             f'for a per-rank trace')
+        return v // n
+
+    return replace(cfg, max_samples=div(cfg.max_samples, 'max_samples'),
+                   seg_budget=div(cfg.seg_budget, 'seg_budget'),
+                   eval_seg_budget=div(cfg.eval_seg_budget,
+                                       'eval_seg_budget'))
 
 
 def integration_weights(density, deltas, mask):

@@ -1,4 +1,5 @@
-"""Image INR trainer: one SHACIRA image per trainer, on one device.
+"""Image INR trainer: one SHACIRA image per trainer, on one device or
+data-parallel.
 
 Port of ``shacira_tpu/trainers/image_trainer.py``.  The JAX trainer runs
 chunks of steps under ``lax.scan``; here a Python loop runs one eager step
@@ -31,6 +32,18 @@ head.  'woreplace' draws a new permutation once an epoch with
 ``resample``.  Iterations and epochs count from the trainer's own epoch,
 so a resumed sampled run continues its schedules.
 
+Data parallelism (``mesh=``, ``parallel/mesh.py``): the parameters are
+replicated from rank 0; full-image mode gives each rank its rows of the
+lattice (the pixel count must divide n), the sampled modes draw the global
+batch on every rank from the same generator or permutation and keep the
+rank's part; gradients are averaged over the ranks; the metrics, and
+with them the best state, are the whole batch's on every rank, and
+``recalibrate_div`` reads the replicated codebook, so every rank makes the
+same choices.  Every rank validates and renders, as one trainer would;
+only rank 0 logs and writes files.  Without a mesh the trainer runs on a
+one-rank mesh (``parallel/mesh.local_mesh``), whose collectives do
+nothing.
+
 Every random draw of a step (SGA uniforms, rate-loss noise, 'wreplace'
 pixels) is an :class:`ImageStepDraws` argument of :meth:`step`; the trainer
 draws them in :meth:`draw_step`.  The step reads nothing back to the host:
@@ -60,7 +73,8 @@ from shacira_tpu_torch.models.latent_decoders import (
 from shacira_tpu_torch.models.nefs.image import (
     NeuralImageConfig, neural_image_init, neural_image_rgb,
     non_grid_size_bits)
-from shacira_tpu_torch.ops.image import clamped_psnr
+from shacira_tpu_torch.ops.image import clamped_mse, clamped_psnr
+from shacira_tpu_torch.parallel import mesh as pmesh
 from shacira_tpu_torch.utils import checkpoint
 
 
@@ -113,13 +127,18 @@ class ImageTrainer:
 
     def __init__(self, cfg: ImageTrainerConfig, model_cfg: NeuralImageConfig,
                  dataset, seed: int = 0, log_dir: Optional[str] = None,
-                 logger=None, device=None):
+                 logger=None, device=None, mesh: Optional[pmesh.Mesh] = None):
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.dataset = dataset
         self.log_dir = log_dir
         self.logger = logger              # optional ExperimentLogger
-        self.device = resolve_device(device)
+        if mesh is None:
+            mesh = pmesh.local_mesh(resolve_device(device))
+        elif device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f'the mesh runs on {mesh.device}, not {device}')
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
 
@@ -127,8 +146,8 @@ class ImageTrainer:
         self.ldecode_enabled = gcfg.ldec is not None
         self.entropy_enabled = self.ldecode_enabled and gcfg.entropy_enabled
         self.affine = lg.supports_affine_fusion(gcfg)
-        self.set_params(neural_image_init(self.generator, model_cfg,
-                                          self.device))
+        self.set_params(pmesh.replicate(mesh, neural_image_init(
+            self.generator, model_cfg, self.device)))
         self.noise = torch.zeros_like(self.params['grid']['codebook'])
 
         n = cfg.epochs
@@ -169,6 +188,11 @@ class ImageTrainer:
         self.best_loss = torch.full((), np.inf, device=self.device)
         self.best_psnr = torch.zeros((), device=self.device)
 
+    @property
+    def is_writer(self) -> bool:
+        """This process writes logs, checkpoints and renders: rank 0."""
+        return self.mesh.rank == 0
+
     def _on_device(self, params: dict) -> dict:
         return optim.tree_map(lambda t: torch.as_tensor(t).to(self.device),
                               params)
@@ -198,7 +222,9 @@ class ImageTrainer:
              ) -> Dict[str, torch.Tensor]:
         """One training step on ``coords`` [N, 2] / ``gt`` [N, 3]: Adam in
         place on ``self.params`` / ``self.opt_state``; returns the step's
-        metrics as device tensors."""
+        metrics as device tensors.  With a mesh the pixels are this rank's
+        part of the batch, the gradients are averaged over the ranks and
+        the metrics are the whole batch's."""
         cfg, mcfg = self.cfg, self.model_cfg
         gcfg = mcfg.grid
         p = self.params
@@ -250,13 +276,20 @@ class ImageTrainer:
         wd = {'decoder': 0.0, 'grid': cfg.weight_decay,
               'latent_dec': cfg.weight_decay_decoder,
               'prob_models': cfg.weight_decay_decoder, 'rest': 0.0}
+        grads = {path: g for (path, _), g in zip(trained, grads)}
+        kw = dict(decoupled=cfg.optimizer_type == 'adamw')
         with record_function('step/adam'):
-            optim.adam_update(
-                {path: g for (path, _), g in zip(trained, grads)},
-                self.opt_state, p, self.labels, lrs, wd,
-                decoupled=cfg.optimizer_type == 'adamw')
-        metrics.update(loss=loss.detach(), rgb_loss=rgb_loss.detach(),
-                       psnr=clamped_psnr(pred.detach(), gt))
+            optim.adam_update_mesh(grads, self.opt_state, p, self.labels,
+                                   lrs, wd, self.mesh, **kw)
+        # the batch's means from the ranks' (equal-sized) parts; the rate
+        # term is the same on every rank
+        rgb_loss, cmse = pmesh.all_reduce_sum(self.mesh, torch.stack(
+            [rgb_loss.detach(), clamped_mse(pred.detach(), gt)])
+        ) / self.mesh.size
+        metrics.update(
+            loss=cfg.rgb_loss_weight * rgb_loss + metrics.get('ent_loss', 0.0),
+            rgb_loss=rgb_loss,
+            psnr=20.0 * np.log10(255.0) - 10.0 * torch.log10(cmse))
         return metrics
 
     @torch.no_grad()
@@ -353,10 +386,10 @@ class ImageTrainer:
         if not ds.static_coords:
             return self._train_sampled(epochs, log_fn, finalize)
         if self._full is None:
-            # the pixel lattice in row-major order, uploaded once
-            self._full = (torch.as_tensor(pixel_coords(ds.h, ds.w),
-                                          device=self.device),
-                          torch.as_tensor(ds.rgb, device=self.device))
+            # this rank's rows of the pixel lattice in row-major order,
+            # uploaded once
+            self._full = pmesh.shard_batch(self.mesh, pixel_coords(ds.h, ds.w),
+                                           ds.rgb)
         coords, gt = self._full
 
         t0 = time.time()
@@ -375,8 +408,8 @@ class ImageTrainer:
             metrics = self._run_steps(xs, use_sga, lambda i, d: (coords, gt))
             self.epoch += n
             done += n
-            if cfg.log_every > 0 and (self.epoch % cfg.log_every == 0
-                                      or done >= epochs):
+            if self.is_writer and cfg.log_every > 0 and (
+                    self.epoch % cfg.log_every == 0 or done >= epochs):
                 entry = self.size_report(use_codec=False)
                 entry.update(epoch=self.epoch,
                              psnr=float(metrics['psnr']),
@@ -413,16 +446,21 @@ class ImageTrainer:
             return
         cfg = self.cfg
         e = self.epoch
+        # every rank validates and renders, as one trainer would, so that
+        # none waits in the next collective for rank 0; rank 0 logs
         if cfg.valid_every > 0 and e % cfg.valid_every == 0:
             m = self.validate()
-            if self.logger is not None:
+            if self.is_writer and self.logger is not None:
                 self.logger.scalar('valid/psnr', m['psnr'], e)
-            if log_fn:
+            if self.is_writer and log_fn:
                 log_fn({'epoch': e, 'valid_psnr': m['psnr'],
                         'best_val_psnr': self.best_val_psnr})
         if (cfg.render_tb_every > 0 and e % cfg.render_tb_every == 0
-                and self.logger is not None):
-            self.logger.image('render/pred', self.render(), e)
+                and pmesh.broadcast_object(self.mesh,
+                                           self.logger is not None)):
+            img = self.render()
+            if self.is_writer:
+                self.logger.image('render/pred', img, e)
         if cfg.save_every > 0 and e % cfg.save_every == 0 and self.log_dir:
             checkpoint.save_trainer(
                 self, os.path.join(self.log_dir, 'resume_state.ckpt'))
@@ -535,6 +573,8 @@ class ImageTrainer:
             def batch_fn(i, draws, _it0=done + 1):
                 idx = (draws.idx if draws.idx is not None
                        else self.batch_indices(_it0 + i))
+                # every rank draws the global batch and keeps its part
+                idx = idx[pmesh.batch_sharding(self.mesh, idx.shape[0])]
                 return self.pixel_batch(idx)
 
             metrics = self._run_steps(xs, use_sga, batch_fn)
@@ -542,7 +582,7 @@ class ImageTrainer:
             done += n
             self.epoch = done // bpe
             crossed = self.epoch != prev_epoch
-            if cfg.log_every > 0 and log_fn and (
+            if self.is_writer and cfg.log_every > 0 and log_fn and (
                     (crossed and self.epoch % cfg.log_every == 0)
                     or done >= end):
                 entry = {'epoch': self.epoch, 'iteration': done,
@@ -636,7 +676,7 @@ class ImageTrainer:
                'epoch': self.epoch, 'BPP': report['bpp'], **report}
         if self.val_best_params is not None:
             out['best_val_psnr'] = self.best_val_psnr
-        if self.log_dir:
+        if self.log_dir and self.is_writer:
             os.makedirs(self.log_dir, exist_ok=True)
             with open(os.path.join(self.log_dir, 'metrics.json'), 'w') as f:
                 json.dump(out, f, indent=2)

@@ -1,5 +1,5 @@
-"""Multiview (NeRF) trainer: single device, any grid backbone, flat or paged
-layout.
+"""Multiview (NeRF) trainer: one device or data-parallel, any grid backbone,
+flat or paged layout.
 
 Port of ``shacira_tpu/trainers/multiview_trainer.py``.  The JAX trainer runs
 chunks of steps under ``lax.scan``; here a Python loop runs one eager step
@@ -58,6 +58,23 @@ returns PSNR, SSIM and, with ``SHACIRA_LPIPS_WEIGHTS`` set, LPIPS, and
 :meth:`size_report` gives the compressed size in kB from real arithmetic
 codestreams of the rounded latents.
 
+Data parallelism (``mesh=``, ``parallel/mesh.py``: one process a device):
+``num_rays`` must divide the mesh size; the parameters, the noise and the
+occupancy are replicated from rank 0 at construction.  Every rank draws
+the step's whole draws and the global ray batch, as one trainer would.
+With budgets that divide n each rank traces its ``R/n`` rays at budgets/n
+(``rf_tracer.per_device_cfg``, :attr:`_shard_ray_active`), else every
+rank traces every ray.  With ``shard_table_work`` (a latent grid whose
+table rows divide n) the SGA quantize, the affine decode and the rate loss
+run on the rank's ``T/n`` rows, whose Adam moments it alone holds; one
+autograd all-gather joins the quantized rows.  Gradients are averaged over
+the ranks, the metrics are the global batch's, the prune's occupancy and
+the probes of the adapted budgets are rank 0's on every rank.  Every rank
+validates and renders, as one trainer would; only rank 0 logs and writes
+checkpoints (for which every rank gathers the moments).  Without a mesh
+the trainer runs on a one-rank mesh (``parallel/mesh.local_mesh``), whose
+collectives do nothing and which shards no table work.
+
 Each training step and each prune runs under ``step_lock`` (a
 ``utils/locks.FairRLock``: a waiting frame gets it before the next step),
 and ``iteration`` advances with every step: a viewer that renders under
@@ -89,6 +106,7 @@ from shacira_tpu_torch.models.nefs.nerf import NeuralRadianceFieldConfig
 from shacira_tpu_torch.ops import lpips as lpips_mod
 from shacira_tpu_torch.ops import paged_hash as ph
 from shacira_tpu_torch.ops.image import psnr, ssim
+from shacira_tpu_torch.parallel import mesh as pmesh
 from shacira_tpu_torch.tracers import rf_tracer
 from shacira_tpu_torch.utils import checkpoint
 from shacira_tpu_torch.utils.locks import FairRLock
@@ -185,12 +203,20 @@ class MultiviewTrainer:
                  num_rays: int, seed: int = 0, device=None,
                  val_dataset=None, log_dir: Optional[str] = None,
                  structure: Optional[og.OctreeStructure] = None,
-                 logger=None):
+                 logger=None, mesh: Optional[pmesh.Mesh] = None):
         self.cfg = cfg
         self.logger = logger                # optional ExperimentLogger
         self.step_lock = FairRLock()
         self.model_cfg = model_cfg
-        self.device = resolve_device(device)
+        if mesh is None:
+            mesh = pmesh.local_mesh(resolve_device(device))
+        elif device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f'the mesh runs on {mesh.device}, not {device}')
+        if num_rays % mesh.size:
+            raise ValueError(f'num_rays {num_rays} must divide the mesh size '
+                             f'{mesh.size}')
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device)
         self.grid_kind = nerf_mod.grid_kind(model_cfg.grid)
         self.is_latent = self.grid_kind == 'latent'
         if not self.is_latent and (cfg.random_lod or cfg.grow_every > 0):
@@ -235,8 +261,14 @@ class MultiviewTrainer:
         self.ldecode_enabled = self.is_latent and gcfg.ldec is not None
         self.entropy_enabled = self.ldecode_enabled and gcfg.entropy_enabled
         self.affine = self.is_latent and lg.supports_affine_fusion(gcfg)
-        self.set_params(nerf_mod.nerf_init(self.generator, model_cfg,
-                                           self.device, structure))
+        params = nerf_mod.nerf_init(self.generator, model_cfg, self.device,
+                                    structure)
+        # codebook-side table work on T/n rows a rank: the SGA quantize,
+        # the affine decode, the rate loss and the codebook's Adam moments
+        self.shard_table_work = (
+            mesh.group is not None and self.is_latent
+            and params['grid']['codebook'].shape[0] % mesh.size == 0)
+        self.set_params(params)
         # the rate-loss noise exists for the latent grid only
         self.noise = (torch.zeros_like(self.params['grid']['codebook'])
                       if self.is_latent else
@@ -273,6 +305,8 @@ class MultiviewTrainer:
             span = float(dataset.dist_max) - float(dataset.dist_min)
             ph.validate_paged_cover(
                 gcfg.spec, span * (gss / 2 + 1) / tracer_cfg.num_steps / 2.0)
+        # the Adam moments start at zero on every rank
+        pmesh.replicate(mesh, (self.params, self.noise, self.occ_state))
 
         self.iters_per_epoch = dataset.num_views
         self.entropy_reg_sched = DecayScheduler(
@@ -298,6 +332,45 @@ class MultiviewTrainer:
         self.params = params
         self.opt_state = (opt_state if opt_state is not None
                           else optim.adam_init(params))
+        if self.shard_table_work:
+            # this rank's rows of the codebook's moments
+            rows = self._table_rows
+            for m in (self.opt_state['mu'], self.opt_state['nu']):
+                cb = m['grid']['codebook']
+                if cb.shape[0] != rows.stop - rows.start:
+                    m['grid']['codebook'] = cb[rows].clone()
+
+    @property
+    def _table_rows(self) -> Optional[slice]:
+        """This rank's codebook rows under ``shard_table_work``."""
+        if not self.shard_table_work:
+            return None
+        return pmesh.row_sharding(self.mesh,
+                                  self.params['grid']['codebook'].shape[0])
+
+    def _rank_trace(self):
+        """(tracer config, ray rows) of this rank's trace: with a mesh of
+        n > 1 ranks and budgets that divide n, its ``R/n`` rays at
+        budgets/n (``rf_tracer.per_device_cfg``); else every ray at the
+        step's budgets, on every rank (``None`` rows)."""
+        tcfg, mesh = self.active_tracer_cfg, self.mesh
+        if mesh.size == 1:
+            return tcfg, None
+        try:
+            cfg = rf_tracer.per_device_cfg(tcfg, mesh.size)
+        except ValueError:
+            return tcfg, None
+        return cfg, pmesh.batch_sharding(mesh, self.num_rays)
+
+    @property
+    def _shard_ray_active(self) -> bool:
+        """Each rank traces only its rays (see :meth:`_rank_trace`)."""
+        return self._rank_trace()[1] is not None
+
+    @property
+    def is_writer(self) -> bool:
+        """This process writes logs, checkpoints and renders: rank 0."""
+        return self.mesh.rank == 0
 
     def set_occupancy(self, occ_state: dict):
         """Install an occupancy state and rebuild the grids derived from
@@ -387,18 +460,46 @@ class MultiviewTrainer:
              ) -> Dict[str, torch.Tensor]:
         """One training step: trace (``active_tracer_cfg``; ``lod_mask``
         [num_lods] 0/1 masks the grid features of LODs), L1 + rate loss,
-        backward, Adam (in place on ``self.params`` / ``self.opt_state``)."""
-        cfg, mcfg, tcfg = self.cfg, self.model_cfg, self.active_tracer_cfg
+        backward, Adam (in place on ``self.params`` / ``self.opt_state``).
+
+        With a mesh the rays are this rank's (its ``R/n`` rows when
+        :attr:`_shard_ray_active`, else the whole batch) and ``draws`` the
+        step's whole draws, of which the rank keeps its march-jitter rows
+        and, under ``shard_table_work``, its codebook rows.  Each rank's
+        loss is weighted so that the mean of the ranks' gradients is the
+        gradient of the global batch: the L1 term is its rays' mean and
+        the rate term n times its rows' share.  The metrics are the global
+        batch's."""
+        cfg, mcfg = self.cfg, self.model_cfg
+        tcfg, ray_rows = self._rank_trace()
+        table_rows = self._table_rows
         gcfg = mcfg.grid
         p = self.params
         trained = [(path, leaf) for path, leaf
                    in optim.tree_leaves_with_path(p) if leaf.requires_grad]
+        march_u, sga_u, noise = draws.march_u, draws.sga_u, draws.noise
+        if ray_rows is not None and march_u.dim() > 1:
+            march_u = march_u[ray_rows]      # the lean march's seed is whole
+        grid = p['grid']
+        if table_rows is not None:
+            sga_u = None if sga_u is None else sga_u[table_rows]
+            noise = None if noise is None else noise[table_rows]
+            grid = dict(grid, codebook=grid['codebook'][table_rows])
+            if self.affine:
+                # the rows' gradient, summed over the ranks by the
+                # all-gather's backward
+                grid['codebook'] = grid['codebook'].detach().requires_grad_()
+                cb_path = ('grid', 'codebook')
+                trained = [(path, grid['codebook'] if path == cb_path
+                            else leaf) for path, leaf in trained]
 
         with record_function('step/decode'):
             if self.affine:
-                parts = lg.affine_parts(p['grid'], gcfg, use_sga=use_sga,
-                                        temperature=temperature,
-                                        sga_u=draws.sga_u)
+                parts = lg.affine_parts(grid, gcfg, use_sga=use_sga,
+                                        temperature=temperature, sga_u=sga_u)
+                if table_rows is not None:
+                    parts = (pmesh.all_gather_rows(self.mesh, parts[0]),
+                             ) + tuple(parts[1:])
             elif self.is_latent:
                 decoded = lg.decode_codebook(p['grid'], gcfg, use_sga=use_sga,
                                              temperature=temperature,
@@ -422,12 +523,14 @@ class MultiviewTrainer:
                      lod_mask)
                  if self.use_paged else None)
         rb = rf_tracer.trace(field_fn, self.occ_state, mcfg.occ_cfg, tcfg,
-                             rays, draws.march_u, encode_split=split)
+                             rays, march_u, encode_split=split)
         rgb_loss = torch.mean(torch.abs(rb['rgb'] - gt))
         loss = cfg.rgb_loss_weight * rgb_loss
+        avg_bits = torch.zeros((), device=self.device)
         if self.entropy_enabled:
             with record_function('step/rate_loss'):
-                avg_bits, _ = lg.ent_loss(p['grid'], gcfg, draws.noise)
+                # over T/n rows: bits / (T/n), n times the rows' share
+                avg_bits, _ = lg.ent_loss(grid, gcfg, noise)
             loss = loss + ent_lambda * avg_bits
         grads = torch.autograd.grad(loss, [leaf for _, leaf in trained],
                                     allow_unused=True)
@@ -446,14 +549,18 @@ class MultiviewTrainer:
         wd = {'decoder': 0.0, 'grid': cfg.weight_decay,
               'latent_dec': cfg.weight_decay_decoder,
               'prob_models': cfg.weight_decay_decoder, 'rest': 0.0}
+        grads = {path: g for (path, _), g in zip(trained, grads)}
         with record_function('step/adam'):
-            optim.adam_update(
-                {path: g for (path, _), g in zip(trained, grads)},
-                self.opt_state, p, self.labels, lrs, wd,
-                decoupled=cfg.optimizer_type == 'adamw')
+            optim.adam_update_mesh(
+                grads, self.opt_state, p, self.labels, lrs, wd, self.mesh,
+                row_paths=[('grid', 'codebook')] if self.shard_table_work
+                else [], decoupled=cfg.optimizer_type == 'adamw')
         rgb = rb['rgb'].detach()
-        return {'loss': loss.detach(), 'rgb_loss': rgb_loss.detach(),
-                'psnr': psnr(rgb, gt)}
+        mse = torch.mean((rgb - gt) ** 2)
+        rgb_loss, mse, avg_bits = pmesh.all_reduce_sum(self.mesh, torch.stack(
+            [rgb_loss.detach(), mse, avg_bits.detach()])) / self.mesh.size
+        return {'loss': cfg.rgb_loss_weight * rgb_loss + ent_lambda * avg_bits,
+                'rgb_loss': rgb_loss, 'psnr': 10.0 * torch.log10(1.0 / mse)}
 
     @torch.no_grad()
     def prune(self, u: Optional[torch.Tensor] = None):
@@ -463,9 +570,10 @@ class MultiviewTrainer:
         if u is None:
             u = torch.rand((ocfg.num_cells, 3), generator=self.generator,
                            device=self.device)
-        self.set_occupancy(nerf_mod.prune(self.params, self.model_cfg,
-                                          self.occ_state, u,
-                                          structure=self.structure_tables))
+        # one occupancy on every rank, whatever their float sums
+        self.set_occupancy(pmesh.replicate(self.mesh, nerf_mod.prune(
+            self.params, self.model_cfg, self.occ_state, u,
+            structure=self.structure_tables)))
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -551,6 +659,9 @@ class MultiviewTrainer:
             seg = (self._live_segment_fraction()
                    if base.segment_size > 0 and base.eval_seg_budget > 0
                    else None)
+        # rank 0's probes set every rank's budgets: ranks whose budgets
+        # differed would deadlock in the step's collectives
+        frac, seg = pmesh.broadcast_object(self.mesh, (frac, seg))
         new = adapted_budgets(base, self.num_rays, frac, seg,
                               self.cfg.min_budget, self.cfg.budget_headroom)
         self.active_tracer_cfg = replace(base, **new)
@@ -623,9 +734,15 @@ class MultiviewTrainer:
             # drawn before the ray batches, from the same stream, as the
             # JAX trainer draws them
             masks = self._lod_masks(range(it0, it0 + n))
-            # one upload a chunk: each host-to-device copy syncs the stream
-            ro, rd, gt = (torch.as_tensor(a, device=self.device)
-                          for a in self._presample(n))
+            # one upload a chunk: each host-to-device copy syncs the stream;
+            # every rank draws the global batch and, tracing its own rays,
+            # keeps its part of it
+            batch = self._presample(n)
+            if self._shard_ray_active:
+                ro, rd, gt = pmesh.shard_axis(self.mesh, 1, *batch)
+            else:
+                ro, rd, gt = (torch.as_tensor(a, device=self.device)
+                              for a in batch)
             if masks is not None:
                 masks = torch.as_tensor(masks, device=self.device)
             for i in range(n):
@@ -648,7 +765,7 @@ class MultiviewTrainer:
                     self.prune()
                     if cfg.adaptive_budget:
                         self._adapt_budget()
-            if log_fn or self.logger is not None:
+            if self.is_writer and (log_fn or self.logger is not None):
                 entry = {'iteration': self.iteration,
                          'epoch': self._epoch_of(self.iteration),
                          'loss': float(metrics['loss']),
@@ -678,21 +795,25 @@ class MultiviewTrainer:
         if self.iteration % self.iters_per_epoch != 0:
             return
         e = self.iteration // self.iters_per_epoch
+        # every rank validates and renders, as one trainer would, so that
+        # none waits in the next collective for rank 0; rank 0 logs
         if cfg.valid_every > 0 and e % cfg.valid_every == 0:
             m = self.validate()
-            if self.logger is not None:
+            if self.is_writer and self.logger is not None:
                 self.logger.scalar('valid/psnr', m['psnr'], self.iteration)
                 self.logger.scalar('valid/ssim', m['ssim'], self.iteration)
-            if log_fn:
+            if self.is_writer and log_fn:
                 log_fn({'epoch': e, 'valid_psnr': m['psnr'],
                         'valid_ssim': m['ssim'],
                         'best_val_psnr': self.best_val_psnr})
         if (cfg.render_tb_every > 0 and e % cfg.render_tb_every == 0
-                and self.logger is not None):
-            d = self.val_dataset or self.dataset
-            self.logger.image('render/view0', self.render_view(0, dataset=d),
-                              self.iteration)
+                and pmesh.broadcast_object(self.mesh,
+                                           self.logger is not None)):
+            img = self.render_view(0, dataset=self.val_dataset or self.dataset)
+            if self.is_writer:
+                self.logger.image('render/view0', img, self.iteration)
         if cfg.save_every > 0 and e % cfg.save_every == 0 and self.log_dir:
+            # every rank: the moments' rows are gathered, rank 0 writes
             checkpoint.save_trainer(
                 self, os.path.join(self.log_dir, 'resume_state.ckpt'))
 
@@ -708,7 +829,7 @@ class MultiviewTrainer:
             self.best_val_psnr = m['psnr']
             self.val_best_params = optim.tree_map(
                 lambda t: t.detach().to('cpu', copy=True), self.params)
-        if self.logger is not None:
+        if self.is_writer and self.logger is not None:
             self.logger.record({'iteration': self.iteration, **m})
         return m
 

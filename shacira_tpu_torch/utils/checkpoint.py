@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from shacira_tpu_torch import optim
+from shacira_tpu_torch.parallel import mesh as pmesh
 from shacira_tpu_torch.utils.convert import params_from_jax
 
 _JAX_PACKAGE = 'shacira_tpu'
@@ -110,14 +111,35 @@ def _adam_state(opt, dev) -> dict:
             'count': int(count)}
 
 
+def _whole_opt_state(trainer) -> dict:
+    """The trainer's Adam state with the codebook's moments whole: under
+    ``shard_table_work`` a rank holds their rows, and every rank takes
+    part in gathering them."""
+    opt = trainer.opt_state
+    if not getattr(trainer, 'shard_table_work', False):
+        return opt
+    opt = dict(opt)
+    for k in ('mu', 'nu'):
+        tree = optim.tree_map(lambda t: t, opt[k])
+        tree['grid']['codebook'] = pmesh.all_gather_rows(
+            trainer.mesh, tree['grid']['codebook'])
+        opt[k] = tree
+    return opt
+
+
 def save_trainer(trainer, path: str) -> None:
-    """Save an image or multiview trainer's resumable state."""
+    """Save an image or multiview trainer's resumable state.  A trainer on
+    a mesh calls it on every rank and rank 0 writes; the file loads at any
+    world size."""
     image = hasattr(trainer, 'best_params')
+    opt_state = _whole_opt_state(trainer)
+    if not getattr(trainer, 'is_writer', True):
+        return
     state = {
         'epoch': trainer.epoch if image else None,
         'iteration': None if image else trainer.iteration,
         'params': trainer.params,
-        'opt_state': trainer.opt_state,
+        'opt_state': opt_state,
         'noise': trainer.noise,
         'rng': trainer.generator.get_state(),
     }

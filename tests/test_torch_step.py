@@ -185,7 +185,8 @@ def test_port_never_imports_jax_or_the_jax_package():
                 'render/optimization_app.py', 'utils/debugger.py',
                 'framework/state.py', 'ops/image_processing.py',
                 'models/conditioners.py', 'models/nefs/spc_field.py',
-                'datasets/random_view.py'):
+                'datasets/random_view.py', 'parallel/mesh.py',
+                'parallel/multihost.py'):
         assert os.path.join(ROOT, 'shacira_tpu_torch', mod) in files, mod
 
     def banned(mod):
