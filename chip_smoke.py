@@ -22,8 +22,9 @@ Phases, each of which must pass (exit code 1 otherwise):
                of a 128^3 grid, which must equal the plain version's
                exactly) and paged scatter B3.  For B1 and B3 also
                count the updates (one global atomic each without merging),
-               the global atomics the merging kernel issued (counted on the
-               card by the same source built with -DCOUNT_GLOBAL_ATOMICS)
+               the global atomics the merging kernel issued (B1: one per
+               float4, float2 or float atomic; counted on the card by the
+               same source built with -DCOUNT_GLOBAL_ATOMICS)
                and the distinct addresses per tile or kernel block;
 3. parity   -- one small training step on the card against the same step of
                the port on the CPU (plain versions), same params and draws,
@@ -282,8 +283,9 @@ def bound(n_rows: int, f: int, table_rows: int):
 def merge_counts(idx, vals, table_rows, tile=2048):
     """Global atomics of one scatter input, counted on the card:
     ``updates``, one per non-zero in-range (row, column) value (what an
-    unmerged scatter issues); ``atomics``, those the kernel issued, from
-    one launch of its counting build; and ``distinct_per_tile``, the
+    unmerged scatter of single floats issues); ``atomics``, those the
+    kernel issued (one per float4, float2 or float atomic), from one
+    launch of its counting build; and ``distinct_per_tile``, the
     distinct (index, column) pairs per tile of ``tile`` rows, what merging
     a whole tile could reach."""
     import torch
@@ -414,6 +416,18 @@ def scatter_inputs(dev):
     return out
 
 
+def extras_payload(payload):
+    """``payload`` [N, 5] of the per-ray sums with a 3-column extra channel
+    at the training step's shape, shacira_tpu/tracers/rf_tracer.py:319-325:
+    [N, 5 + 3], the extras zero where the row's weight is."""
+    import torch
+    gen = torch.Generator(device=payload.device)
+    gen.manual_seed(5)
+    extra = torch.randn((payload.shape[0], 3), generator=gen,
+                        device=payload.device)
+    return torch.cat([payload, extra * (payload[:, 3:4] != 0)], dim=1)
+
+
 def phase_kernels(dev):
     """Both uses of the scatter kernel at the lego step's shapes."""
     import torch
@@ -446,11 +460,9 @@ def phase_kernels(dev):
     rows['segment_sum'].update(
         use='per-ray sums, shacira_tpu/tracers/rf_tracer.py:325')
     # the same sums with a 3-column extra channel at the training step's
-    # shape, shacira_tpu/tracers/rf_tracer.py:319-325: 5 + 3 columns (phase
-    # viewer holds one batch of its extras frame, which launches them)
-    extra = torch.randn((ids.shape[0], 3), generator=gen, device=dev)
-    payload8 = torch.cat([payload, extra * (payload[:, 3:4] != 0)], dim=1)
-    del extra
+    # shape (phase viewer holds one batch of its extras frame, which
+    # launches them)
+    payload8 = extras_payload(payload)
     rows['segment_sum_extras'] = check_scatter(
         'segment_sum, extras width', ids, payload8, rays,
         lambda i, v, t: scatter.segment_sum(i, v, t),
@@ -2052,6 +2064,51 @@ def check_dda(name, state, ocfg, rays, max_isect, reps=20):
             'crossings': crossings}
 
 
+def v8_scatter_input(dev, data, seeded):
+    """B1(a) at V8's width: the flat V8 backward on the occupancy
+    ``seeded`` from ``data``'s point cloud, 4096 x 64 x 16 samples of the
+    dense voxel march in ray order, masked samples' zero gradients, 20 LODs
+    x 8 corners, width 2, into 1,966,521 rows: (idx int32, vals, rows)."""
+    import torch
+    from shacira_tpu_torch import config as cfg_mod
+    from shacira_tpu_torch.accel import occupancy as occ
+    from shacira_tpu_torch.ops import hashgrid
+    args = _nerf_args(v8_argv(dev))
+    ocfg = occ.OccupancyGridConfig(args.blas_level)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    m = occ.raymarch_voxel(seeded, ocfg, v8_rays(data, dev), args.num_steps,
+                           gen, args.max_intersections)
+    spec = cfg_mod.build_grid_config(args).spec
+    gidx, _ = hashgrid._all_corners(m['samples'].reshape(-1, 3), spec)
+    vals = torch.randn(gidx.shape + (args.latent_dim,), generator=gen,
+                       device=dev)
+    vals.mul_(m['mask'].reshape(1, -1, 1, 1))     # masked samples: zero
+    log(f'  V8 flat step: {int(m["mask"].sum())} of {m["mask"].numel()} '
+        f'samples live')
+    return (gidx.reshape(-1), vals.reshape(-1, args.latent_dim),
+            spec.total_size)
+
+
+def voxel_segment_input(dev):
+    """B1(b) on the paged voxel step: per-ray sums of ``VOXEL_FLAGS``'s
+    262,144 samples x 5 into 4096 rays, ids sorted over the 80 % valid
+    prefix, a zero-weight tail on ray 0: (ids int32, payload, rays)."""
+    import torch
+    vargs = _nerf_args(v8_argv(dev, '', '', *VOXEL_FLAGS))
+    k, rays_n = vargs.max_samples, vargs.num_rays_sampled_per_img
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    valid_rows = int(0.8 * k)
+    ids = torch.sort(torch.randint(0, rays_n, (valid_rows,), generator=gen,
+                                   device=dev)).values
+    ids = torch.cat([ids, torch.zeros((k - valid_rows,), dtype=ids.dtype,
+                                      device=dev)]).to(torch.int32)
+    payload = torch.randn((k, 5), generator=gen, device=dev)
+    payload[valid_rows:] = 0.0
+    return ids, payload, rays_n
+
+
 def phase_voxel_kernels(dev, data):
     """The kernels at the voxel path's shapes: V1 on 4096 rays of the v8
     scene against its plain version, on the occupancy seeded from the
@@ -2064,13 +2121,12 @@ def phase_voxel_kernels(dev, data):
     x 5 into 4096); B2 and B3 at ``ld`` 2 on 16,384 crossings of 16
     samples (262,144 slots)."""
     import torch
-    from shacira_tpu_torch import config as cfg_mod
     from shacira_tpu_torch.accel import occupancy as occ
     from shacira_tpu_torch.core.rays import make_rays
-    from shacira_tpu_torch.ops import hashgrid, scatter
+    from shacira_tpu_torch.ops import scatter
     args = _nerf_args(v8_argv(dev))
     ocfg = occ.OccupancyGridConfig(args.blas_level)
-    I, S = args.max_intersections, args.num_steps
+    I = args.max_intersections
     rays = v8_rays(data, dev)
     seeded = occ.occupancy_from_points(ocfg, data.pointcloud, dev)
     log(f'  seeded occupancy: {float(seeded["occ"].float().mean()):.5f} '
@@ -2097,40 +2153,22 @@ def phase_voxel_kernels(dev, data):
                                  f'{", ".join(DDA_EDGE_KINDS)} rays')
     b1 = dict(source='shacira_tpu_torch/csrc/scatter.cu',
               replaces='shacira_tpu/ops/pallas_scatter.py:29')
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(3)
-    m = occ.raymarch_voxel(seeded, ocfg, rays, S, gen, I)
-    spec = cfg_mod.build_grid_config(args).spec
-    gidx, _ = hashgrid._all_corners(m['samples'].reshape(-1, 3), spec)
-    vals = torch.randn(gidx.shape + (args.latent_dim,), generator=gen,
-                       device=dev)
-    vals.mul_(m['mask'].reshape(1, -1, 1, 1))     # masked samples: zero
-    log(f'  V8 flat step: {int(m["mask"].sum())} of {m["mask"].numel()} '
-        f'samples live')
-    del m
+    idx, vals, table_rows = v8_scatter_input(dev, data, seeded)
     rows['scatter_add_v8'] = dict(check_scatter(
-        'scatter_add V8 flat backward, 20 LODs, width 2',
-        gidx.reshape(-1), vals.reshape(-1, args.latent_dim),
-        spec.total_size, scatter.scatter_add, scatter.scatter_add_plain,
+        'scatter_add V8 flat backward, 20 LODs, width 2', idx, vals,
+        table_rows, scatter.scatter_add, scatter.scatter_add_plain,
         reps=5), **b1, use='flat V8 hash backward (dense voxel '
                            'integration), shacira_tpu/ops/hashgrid.py:471')
-    del gidx, vals
+    del idx, vals
     torch.cuda.empty_cache()
-    vargs = _nerf_args(v8_argv(dev, '', '', *VOXEL_FLAGS))
-    k, rays_n = vargs.max_samples, vargs.num_rays_sampled_per_img
-    valid_rows = int(0.8 * k)
-    ids = torch.sort(torch.randint(0, rays_n, (valid_rows,), generator=gen,
-                                   device=dev)).values
-    ids = torch.cat([ids, torch.zeros((k - valid_rows,), dtype=ids.dtype,
-                                      device=dev)]).to(torch.int32)
-    payload = torch.randn((k, 5), generator=gen, device=dev)
-    payload[valid_rows:] = 0.0
+    ids, payload, rays_n = voxel_segment_input(dev)
     rows['segment_sum_voxel'] = dict(check_scatter(
         'segment_sum, paged voxel step', ids, payload, rays_n,
         lambda i, v, t: scatter.segment_sum(i, v, t),
         scatter.scatter_add_plain, reps=50), **b1,
         use='per-ray sums of the paged voxel step, '
             'shacira_tpu/tracers/rf_tracer.py:325')
+    vargs = _nerf_args(v8_argv(dev, '', '', *VOXEL_FLAGS))
     inp = paged_inputs(dev, vargs, voxel=True)
     slots = (inp['coords_s'], inp['slot_valid'], inp['block_cell'])
     b23 = dict(source='shacira_tpu_torch/csrc/paged_hash.cu')

@@ -2,7 +2,7 @@
 """Time versions of the port's kernels against each other on the card, on
 ``chip_smoke.py``'s inputs at the lego and V8 steps' shapes.
 
-    python3 compare_kernels.py [--baseline DIR] [--only b|v1] [--out FILE]
+    python3 compare_kernels.py [--baseline DIR] [--only b|b1|v1] [--out FILE]
 
 Versions, each built anew with ``build.NVCC_FLAGS`` into
 ``build/compare/``:
@@ -16,10 +16,18 @@ Versions, each built anew with ``build.NVCC_FLAGS`` into
 * ``tree_no_loads`` (B2 rows only): this checkout's ``paged_hash.cu``
   built with ``-DGATHER_WITHOUT_LOADS``, B2's arithmetic without its table
   reads -- what the loads cost.  Not checked against the plain version;
-* V1 (``csrc/voxel_dda.cu``): ``tree`` and ``baseline`` as above.
+* V1 (``csrc/voxel_dda.cu``): ``tree`` and ``baseline`` as above;
+* ``index_add_`` (B1 rows only): the PyTorch call that computes the same
+  scatter, timed in the same turns.
 
-Inputs: ``chip_smoke.scatter_inputs`` (B1(a) one LOD, on random points and
-on ray-ordered samples, B1(b)), ``chip_smoke.paged_inputs`` (B2 and B3 at
+Inputs, each built when its row comes and freed after it: every B1 row of
+``chip_smoke.py`` -- ``scatter_inputs`` (B1(a) one LOD, on random points
+and on ray-ordered samples, B1(b)) and B1(b) with ``extras_payload``'s 5 +
+3 columns, ``image_scatter_inputs`` (B1(c), B1(c'), B1(d)),
+``backbone_scatter_inputs`` (B1(e), B1(f), B1(g), HashGrid's B1(a)),
+``sdf_scatter_input`` (B1(h), a recorded step of the SDF demo),
+``v8_scatter_input`` and ``voxel_segment_input`` (B1(a) at V8's width,
+the paged voxel step's B1(b)); ``chip_smoke.paged_inputs`` (B2 and B3 at
 train shapes, B2 also with its occupancy row of a 128^3 grid) and
 ``chip_smoke.prune_inputs`` (B2 at the prune's 2,097,152 rows).  On the
 occupancy-row input a baseline without that row runs B2 without it.
@@ -35,21 +43,23 @@ the occupancy row exactly); then the versions are timed with CUDA events,
 in order and in reverse (A B B A), each turn ``REPS`` launches or enough
 for ``TURN_MS`` of the first version's time, whichever is more (V1 also
 on the device alone, ``chip_smoke.graph_ms``: ``device_ms``).  Also counts,
-from ``cuobjdump -sass`` of each version's ``paged_hash`` library, the
-SASS instructions of each kernel and its ``MUFU.RCP`` (one per integer
-division by a runtime value).  Prints the card line and one JSON line,
-also written to ``--out``.
+from ``cuobjdump -sass`` of each version's libraries, the SASS
+instructions of each kernel (B1: one for each width F) and its
+``MUFU.RCP`` (one per integer division by a runtime value).  Prints the
+card line and one JSON line, also written to ``--out``.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import json
 import math
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -60,6 +70,7 @@ OUT_DIR = ROOT / 'build' / 'compare'
 REPS = 10          # launches a turn, at least
 TURN_MS = 20.0     # and at least this long: short kernels get more
 NO_LOADS = 'tree_no_loads'
+LIBRARY = 'index_add_'
 
 
 def _build(baseline, only=None):
@@ -71,7 +82,8 @@ def _build(baseline, only=None):
         trees['baseline'] = Path(baseline) / 'shacira_tpu_torch' / 'csrc'
     shutil.rmtree(OUT_DIR, ignore_errors=True)    # another tree's build
     names = {None: ('scatter', 'paged_hash', 'voxel_dda'),
-             'b': ('scatter', 'paged_hash'), 'v1': ('voxel_dda',)}[only]
+             'b': ('scatter', 'paged_hash'), 'b1': ('scatter',),
+             'v1': ('voxel_dda',)}[only]
     jobs = [(label, name, csrc / f'{name}.cu',
              OUT_DIR / label / f'lib{name}.so', ())
             for label, csrc in trees.items() for name in names
@@ -131,16 +143,9 @@ def _launch_dda(lib, state, ocfg, rays, max_isect: int) -> dict:
     return out
 
 
-def _dda_cases(dev, libs):
-    """V1's cases, as :func:`_cases` gives them, on a scene written to a
-    temporary directory; every version is first checked bit for bit
-    against the plain version, also on the edge rays."""
-    import tempfile
-
-    import numpy as np
-    import torch
-    from shacira_tpu_torch.accel import occupancy as occ
-    from shacira_tpu_torch.core.rays import make_rays
+def _v8_scene(dev):
+    """(data, args): the training views of ``chip_smoke.write_rtmv_scene``'s
+    v8 scene, written to a temporary directory, and the v8 flags."""
     from shacira_tpu_torch.datasets.rtmv import load_rtmv
     with tempfile.TemporaryDirectory() as tmp:
         scene = str(Path(tmp) / 'rtmv')
@@ -148,6 +153,17 @@ def _dda_cases(dev, libs):
         args = cs._nerf_args(cs.v8_argv(dev, scene, tmp, *cs.V8_FLAGS))
         data = load_rtmv(scene, split='train', mip=args.mip,
                          max_views=args.max_views)
+    return data, args
+
+
+def _dda_cases(dev, libs, data, args):
+    """V1's cases, as :func:`_cases` gives them, on the v8 scene's ``data``;
+    every version is first checked bit for bit against the plain version,
+    also on the edge rays."""
+    import numpy as np
+    import torch
+    from shacira_tpu_torch.accel import occupancy as occ
+    from shacira_tpu_torch.core.rays import make_rays
     ocfg = occ.OccupancyGridConfig(args.blas_level)
     I = args.max_intersections
     rays = cs.v8_rays(data, dev)
@@ -173,19 +189,52 @@ def _dda_cases(dev, libs):
                                 ('voxel_dda_all_occupied', full))]
 
 
-def _cases(dev, libs):
-    """(input name, {label: (launch, plain)}): zero-argument closures; a
-    plain of None skips the check."""
-    from shacira_tpu_torch.ops import paged_hash as ph
+def _scatter_cases(dev, libs, data):
+    """B1's rows, each built when the caller asks for the next one:
+    (input name, {label: (launch, plain)}), ``index_add_`` among the
+    labels; ``data`` is the v8 scene's training views."""
+    import torch
+    from shacira_tpu_torch.accel import occupancy as occ
+    from shacira_tpu_torch.apps import sdf_demo
     from shacira_tpu_torch.ops import scatter
     versions = [k for k in libs if k != NO_LOADS and 'scatter' in libs[k]]
+
+    def case(name, idx, vals, rows, *_):
+        plain = (lambda: scatter.scatter_add_plain(idx, vals, rows))
+        fns = {label: (lambda lib=libs[label]['scatter']:
+                       scatter._launch_scatter(idx, vals, rows, lib=lib),
+                       plain) for label in versions}
+        idx64 = idx.long()
+        fns[LIBRARY] = (lambda: torch.zeros(
+            (rows, vals.shape[1]), device=vals.device).index_add_(
+                0, idx64, vals), plain)
+        return name, fns
+
+    inputs = cs.scatter_inputs(dev)
+    ids, payload, rays = inputs['segment_sum']
+    inputs['segment_sum_extras'] = (ids, cs.extras_payload(payload), rays)
+    del ids, payload
+    inputs.update(cs.image_scatter_inputs(dev))
+    for name in list(inputs):
+        yield case(name, *inputs.pop(name))
+    inputs = cs.backbone_scatter_inputs(dev)
+    for name in list(inputs):
+        yield case(name, *inputs.pop(name))
+    yield case('scatter_add_sdf',
+               *cs.sdf_scatter_input(dev, sdf_demo.build_dataset()))
+    v8 = cs._nerf_args(cs.v8_argv(dev))
+    seeded = occ.occupancy_from_points(
+        occ.OccupancyGridConfig(v8.blas_level), data.pointcloud, dev)
+    yield case('scatter_add_v8', *cs.v8_scatter_input(dev, data, seeded))
+    yield case('segment_sum_voxel', *cs.voxel_segment_input(dev))
+
+
+def _cases(dev, libs):
+    """(input name, {label: (launch, plain)}) of B2 and B3: zero-argument
+    closures; a plain of None skips the check."""
+    from shacira_tpu_torch.ops import paged_hash as ph
+    versions = [k for k in libs if k != NO_LOADS and 'paged_hash' in libs[k]]
     cases = []
-    for name, fargs in cs.scatter_inputs(dev).items():
-        plain = (lambda a=fargs: scatter.scatter_add_plain(*a))
-        cases.append((name, {
-            label: (lambda a=fargs, lib=libs[label]['scatter']:
-                    scatter._launch_scatter(*a, lib=lib), plain)
-            for label in versions}))
     inp = cs.paged_inputs(dev)
     slots = ph._device_inputs(inp['coords_s'], inp['slot_valid'],
                               inp['block_cell'])
@@ -221,8 +270,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--baseline', default=None,
                     help='root of another checkout to time against')
-    ap.add_argument('--only', choices=('b', 'v1'), default=None,
-                    help='time only B1-B3 or only V1 (default: all)')
+    ap.add_argument('--only', choices=('b', 'b1', 'v1'), default=None,
+                    help='time only B1-B3, only B1 or only V1 '
+                         '(default: all)')
     ap.add_argument('--out', default=None, help='also write the JSON here')
     args = ap.parse_args(argv)
 
@@ -231,17 +281,19 @@ def main(argv=None) -> int:
         print('compare_kernels: no CUDA device', file=sys.stderr)
         return 1
     libs, paths = _build(args.baseline, args.only)
-    sass = {label: {kernel: n for name, lib in libs_.items()
-                    if name in ('paged_hash', 'voxel_dda')
+    sass = {label: {kernel: n for lib in libs_.values()
                     for kernel, n in sass_counts(lib).items()}
             for label, libs_ in paths.items()}
     print(json.dumps({'sass': sass}), flush=True)
     dev = torch.device('cuda')
 
     rows = []
-    cases = [] if args.only == 'v1' else _cases(dev, libs)
-    if args.only != 'b':
-        cases += _dda_cases(dev, libs)
+    data, v8_args = _v8_scene(dev)
+    cases = [] if args.only == 'v1' else _scatter_cases(dev, libs, data)
+    if args.only in (None, 'b'):
+        cases = itertools.chain(cases, _cases(dev, libs))
+    if args.only in (None, 'v1'):
+        cases = itertools.chain(cases, _dda_cases(dev, libs, data, v8_args))
     for name, fns in cases:
         row = {'input': name, 'ms': {}, 'max_rel_err': {}}
         for label, (launch, plain) in fns.items():

@@ -3,11 +3,12 @@
 Port of ``shacira_tpu/ops/pallas_scatter.py``.  Its Pallas kernel
 ``_scatter_kernel`` (a one-hot MXU matmul) becomes the CUDA kernel
 ``csrc/scatter.cu``: a warp walks a run of consecutive rows
-(:func:`merge_chunk_rows`) 32 at a time, sums runs of an equal index among
-rows 8 apart (the same corner of consecutive samples) with a segmented
-scan over lanes, and issues one float ``atomicAdd`` per run
-(:func:`lane_walks` and :func:`run_merge` are the plain mirror of that
-merge).  Both uses of the JAX package's scatter run through it:
+(:func:`merge_chunk_rows`), each row and its index read once with all its
+columns in registers, sums runs of an equal index among rows 8 apart (the
+same corner of consecutive samples), and issues one vector ``atomicAdd``
+per run and group of :func:`vector_width` columns (:func:`merge_plain` is
+the plain mirror of that walk).  Both uses of the JAX package's scatter
+run through it:
 
 * :func:`scatter_add` -- the hash-grid backward (``ops/hashgrid.py``), one
   launch over all LODs;
@@ -37,6 +38,8 @@ import ctypes
 
 import torch
 
+from shacira_tpu_torch.kernels.build import load
+
 
 def _check(idx: torch.Tensor, vals: torch.Tensor):
     if idx.dim() != 1 or vals.dim() != 2 or idx.shape[0] != vals.shape[0]:
@@ -55,40 +58,67 @@ def merge_chunk_rows(n: int) -> int:
     return chunk
 
 
+def vector_width(f: int) -> int:
+    """Columns one global atomic of ``csrc/scatter.cu`` adds at width
+    ``f``: a float4 where ``f % 4 == 0``, a float2 where ``f % 2 == 0``,
+    else one float."""
+    return 4 if f % 4 == 0 else 2 if f % 2 == 0 else 1
+
+
 def lane_walks(x: torch.Tensor, chunk: int, fill=-1) -> torch.Tensor:
-    """The run sequences of ``csrc/scatter.cu`` in ``x`` [N]: [runs,
-    chunk // 8], row j of every 8 rows of a warp's ``chunk`` rows (rows 8
-    apart, the same corner of consecutive samples); the last chunk padded
-    with ``fill``."""
-    x = torch.nn.functional.pad(x, (0, -x.shape[0] % chunk), value=fill)
-    return x.reshape(-1, chunk // 8, 8).transpose(1, 2).reshape(
-        -1, chunk // 8)
+    """The run sequences of ``csrc/scatter.cu`` in ``x`` [N] or [N, F]:
+    [runs, chunk // 8(, F)], row j of every 8 rows of a warp's ``chunk``
+    rows (rows 8 apart, the same corner of consecutive samples); the last
+    chunk padded with ``fill``."""
+    tail = tuple(x.shape[1:])
+    x = torch.cat([x, x.new_full((-x.shape[0] % chunk, *tail), fill)])
+    return x.reshape(-1, chunk // 8, 8, *tail).transpose(1, 2).reshape(
+        -1, chunk // 8, *tail)
 
 
 def run_merge(keys: torch.Tensor, vals: torch.Tensor):
     """Plain mirror of the merge in ``csrc/scatter.cu``: row ``i`` of
-    ``keys`` [S, K] (int64, negative = no update) and ``vals`` [S, K] is
+    ``keys`` [S, K] (int64, negative = not live) and ``vals`` [S, K, F] is
     one run sequence (:func:`lane_walks`); each run of an equal key is
-    summed and issued where the key changes (a row without an update ends
-    a run).  Returns the (keys [M], sums [M]) that reach the table, one
-    global atomic each (sums that are exactly zero are dropped, as the
-    kernel drops them).  A ``cuda`` test holds their count to the atomics
-    the kernel's counting build issues."""
+    summed per column and issued where the key changes (a row that is not
+    live ends a run).  Returns the (keys [M], sums [M, F]) of the runs that
+    reach the table (runs whose sums are all exactly zero are dropped, as
+    the kernel drops them)."""
     held_k = torch.full((keys.shape[0],), -1, dtype=torch.long,
                         device=keys.device)
-    held_v = torch.zeros((keys.shape[0],), device=keys.device)
+    held_v = torch.zeros((keys.shape[0], vals.shape[2]), device=keys.device)
     out_k, out_v = [], []
     for i in range(keys.shape[1]):
-        k, v = keys[:, i], vals[:, i].float()
+        k, v = keys[:, i], vals[:, i]
         end = k != held_k
         out_k.append(held_k[end])
         out_v.append(held_v[end])
-        held_v = torch.where(end, torch.where(k >= 0, v, 0.0), held_v + v)
+        held_v = torch.where(end[:, None],
+                             torch.where(k[:, None] >= 0, v, 0.0),
+                             held_v + v)
         held_k = k
     out_k = torch.cat(out_k + [held_k])
     out_v = torch.cat(out_v + [held_v])
-    keep = (out_k >= 0) & (out_v != 0)
+    keep = (out_k >= 0) & (out_v != 0).any(1)
     return out_k[keep], out_v[keep]
+
+
+def merge_plain(idx: torch.Tensor, vals: torch.Tensor, table_size: int):
+    """The walk of ``csrc/scatter.cu`` on ``idx`` [N] and ``vals`` [N, F],
+    in plain PyTorch: (keys [M], sums [M, F], atomics), the runs that reach
+    the table and the global atomics they issue, one per group of
+    :func:`vector_width` columns with a non-zero sum.  A row is live when
+    its index lies in ``[0, table_size)`` and any of its values is
+    non-zero.  A ``cuda`` test holds ``atomics`` to the count of the
+    kernel's counting build."""
+    _check(idx, vals)
+    idx, vals = idx.long(), vals.float()
+    live = (idx >= 0) & (idx < table_size) & (vals != 0).any(1)
+    chunk = merge_chunk_rows(idx.shape[0])
+    keys, sums = run_merge(lane_walks(torch.where(live, idx, -1), chunk),
+                           lane_walks(vals, chunk, fill=0.0))
+    groups = sums.reshape(sums.shape[0], -1, vector_width(vals.shape[1]))
+    return keys, sums, int((groups != 0).any(2).sum())
 
 
 def scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor,
@@ -107,21 +137,31 @@ def scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor,
     return out[:table_size]
 
 
+_SIGNATURE = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+              ctypes.c_void_p)
+
+
+def _bind(lib):
+    """``lib``'s ``scatter_add_rows`` with its C signature, set the first
+    time a library is bound (ctypes keeps the function object)."""
+    fn = lib.scatter_add_rows
+    if fn.argtypes is None:
+        fn.argtypes = _SIGNATURE
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch_scatter(idx: torch.Tensor, vals: torch.Tensor,
                     table_size: int, lib=None) -> torch.Tensor:
     """Launch ``scatter_add_rows`` of ``lib`` (default: the kernel built
     from ``csrc/scatter.cu``) on the current stream into a fresh
     zero-filled f32 table."""
-    if lib is None:
-        from shacira_tpu_torch.kernels.build import load
-        lib = load('scatter')
-    fn = lib.scatter_add_rows
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _bind(load('scatter') if lib is None else lib)
     idx = idx.to(torch.int32).contiguous()
     vals = vals.to(torch.float32).contiguous()
+    if vals.data_ptr() % 16:        # the kernel's vector loads
+        vals = vals.clone()
     n, f = vals.shape
     out = torch.zeros((table_size, f), dtype=torch.float32,
                       device=vals.device)

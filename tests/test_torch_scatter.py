@@ -40,7 +40,8 @@ def _inputs(seed, n, t, f):
 
 
 @needs_jax
-@pytest.mark.parametrize('n,t,f', [(500, 37, 1), (700, 300, 5), (64, 1, 3)])
+@pytest.mark.parametrize('n,t,f', [(500, 37, 1), (700, 300, 5), (64, 1, 3),
+                                   (600, 50, 16), (333, 70, 4)])
 def test_scatter_add_matches_jax(n, t, f):
     idx, vals = _inputs(0, n, t, f)
     got = scatter.scatter_add(torch.as_tensor(idx), torch.as_tensor(vals), t)
@@ -50,7 +51,7 @@ def test_scatter_add_matches_jax(n, t, f):
 
 
 @needs_jax
-@pytest.mark.parametrize('t,f', [(37, 1), (64, 5)])
+@pytest.mark.parametrize('t,f', [(37, 1), (64, 5), (40, 16), (64, 4)])
 def test_scatter_add_matches_pallas_kernel_interpret(t, f):
     idx, vals = _inputs(1, 2048, t, f)
     got = scatter.scatter_add(torch.as_tensor(idx), torch.as_tensor(vals), t)
@@ -209,6 +210,20 @@ def _ray_ordered_corners(n_rays=128, steps=1024, budget=1 << 15, seed=7):
     return gidx.reshape(-1).numpy(), spec.total_size
 
 
+def _sorted_rows_with_zeros(rng, n, t, f):
+    """Sorted runs of ``n`` rows of ``f`` columns into ``t`` rows: a
+    zero-weight tail on row 0, every 7th row all zero, every 3rd row zero
+    in its first half of columns, and every 11th index out of range."""
+    ids = np.sort(rng.integers(0, t, n))
+    ids = np.concatenate([ids, np.zeros(n // 5, np.int64)])
+    vals = rng.normal(size=(ids.shape[0], f))
+    vals[n:] = 0.0
+    vals[::7] = 0.0
+    vals[::3, :(f + 1) // 2] = 0.0
+    ids[::11] = np.where(np.arange(ids[::11].shape[0]) % 2, -1, t)
+    return ids, vals, t
+
+
 def _card_case(name):
     """(idx, vals, table rows) of one merge case of the kernel."""
     rng = np.random.default_rng(8)
@@ -224,9 +239,12 @@ def _card_case(name):
         idx, t = _ray_ordered_corners()
         return idx, rng.normal(size=(idx.shape[0], 1)), t
     if name.startswith('ragged'):     # n not a multiple of the chunk
-        f = int(name[-1])
+        f = int(name.split('F')[-1])
         return (rng.integers(0, 500, 100_003), rng.normal(size=(100_003, f)),
                 500)
+    if name.startswith('sorted runs F'):    # wide rows, some of them zero
+        f = int(name.split()[2][1:])
+        return _sorted_rows_with_zeros(rng, 300_000, 4096, f)
     # 40 keys in turn, offset every 640 rows: no lane's row repeats the
     # key of its row before, so every row is one atomic
     n = 1 << 22
@@ -234,11 +252,17 @@ def _card_case(name):
     return keys, rng.normal(size=(n, 1)), 40_000
 
 
+CARD_CASES = ['every index equal', 'sorted runs F5, zero tail at 0',
+              'ray-ordered hash corners', 'ragged F1', 'ragged F5',
+              'nothing to merge', 'ragged F2', 'ragged F4', 'ragged F8',
+              'ragged F16', 'ragged F3', 'ragged F12',
+              'sorted runs F16 with zero rows',
+              'sorted runs F8 with zero rows',
+              'sorted runs F2 with zero rows']
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('name', [
-    'every index equal', 'sorted runs F5, zero tail at 0',
-    'ray-ordered hash corners', 'ragged F1', 'ragged F5',
-    'nothing to merge'])
+@pytest.mark.parametrize('name', CARD_CASES)
 def test_scatter_kernel_merge_cases_on_card(cuda_device, name):
     idx, vals, t = _card_case(name)
     idx_t = torch.as_tensor(idx.astype(np.int32), device=cuda_device)
@@ -250,14 +274,44 @@ def test_scatter_kernel_merge_cases_on_card(cuda_device, name):
     assert err <= 1e-5 * float(want.abs().max())
 
 
-def _mirror_merge(idx, v, t):
-    """(keys, sums) that the kernel's plain mirror issues for one column
-    ``v`` [N] f32 of the scatter of ``idx`` [N] into ``t`` rows."""
-    chunk = scatter.merge_chunk_rows(idx.shape[0])
-    idx = torch.as_tensor(idx, dtype=torch.long)
-    keys = torch.where((v != 0) & (idx >= 0) & (idx < t), idx, -1)
-    return scatter.run_merge(scatter.lane_walks(keys, chunk),
-                             scatter.lane_walks(v, chunk, fill=0.0))
+def _mirror_merge(idx, vals, t):
+    """(keys, sums [M, F], atomics) that the kernel's plain mirror issues
+    for the scatter of ``idx`` [N] and ``vals`` [N, F] into ``t`` rows."""
+    return scatter.merge_plain(torch.as_tensor(idx),
+                               torch.as_tensor(vals, dtype=torch.float32), t)
+
+
+def _unmerged_atomics(idx, vals, t):
+    """Atomics of a walk that merges nothing: one for each group of
+    ``vector_width`` columns holding a non-zero, in each live row."""
+    v = scatter.vector_width(vals.shape[1])
+    groups = (vals.reshape(vals.shape[0], -1, v) != 0).any(2)
+    live = (idx >= 0) & (idx < t) & (vals != 0).any(1)
+    return int(groups[live].sum())
+
+
+@pytest.mark.parametrize('f', [1, 2, 4, 5, 8, 16])
+def test_merge_mirror_matches_plain_at_every_width(f):
+    """The mirror of the kernel's walk (per-row liveness, one atomic per
+    group of ``vector_width(f)`` columns) sums to the plain scatter on a
+    ragged n with all-zero rows, rows with some zeros and out-of-range
+    indices; sorted runs merge, and where no index repeats every live row
+    issues one atomic per group of its columns that holds a non-zero."""
+    assert scatter.vector_width(f) == {1: 1, 2: 2, 4: 4, 5: 1, 8: 4,
+                                       16: 4}[f]
+    rng = np.random.default_rng(f)
+    idx, vals, t = _sorted_rows_with_zeros(rng, 5_003, 97, f)
+    k, s, atomics = _mirror_merge(idx, vals, t)
+    want = scatter.scatter_add_plain(torch.as_tensor(idx),
+                                     torch.as_tensor(vals).float(), t)
+    got = scatter.scatter_add_plain(k, s, t)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    assert atomics < 0.8 * _unmerged_atomics(idx, vals, t)
+
+    distinct = rng.permutation(idx.shape[0] + 200)[:idx.shape[0]] - 100
+    _, _, atomics = _mirror_merge(distinct, vals, idx.shape[0])
+    assert atomics == _unmerged_atomics(distinct, vals, idx.shape[0])
 
 
 @pytest.mark.parametrize('name', ['ray-ordered hash corners',
@@ -268,10 +322,11 @@ def test_run_merge_mirror_on_the_card_cases(name):
     the issued sums give the plain scatter; ray-ordered corners and
     sorted runs merge, 40 keys in turn do not."""
     idx, vals, t = _card_case(name)
-    v = torch.as_tensor(vals[:, 0], dtype=torch.float32)
-    k, s = _mirror_merge(idx, v, t)
-    got = scatter.scatter_add_plain(k, s[:, None], t)
-    want = scatter.scatter_add_plain(torch.as_tensor(idx), v[:, None], t)
+    v = torch.as_tensor(vals[:, :1], dtype=torch.float32)
+    k, s, atomics = _mirror_merge(idx, v, t)
+    assert atomics == k.numel()
+    got = scatter.scatter_add_plain(k, s, t)
+    want = scatter.scatter_add_plain(torch.as_tensor(idx), v, t)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))
     updates = int(np.count_nonzero(vals[:, 0]))
@@ -284,12 +339,15 @@ def test_run_merge_mirror_on_the_card_cases(name):
 @pytest.mark.cuda
 @pytest.mark.parametrize('name', [
     'every index equal', 'sorted runs F5, zero tail at 0',
-    'ray-ordered hash corners', 'ragged F5', 'nothing to merge'])
+    'ray-ordered hash corners', 'ragged F5', 'nothing to merge',
+    'ragged F4', 'ragged F16', 'sorted runs F16 with zero rows',
+    'ragged F2', 'ragged F8', 'ragged F3', 'ragged F12'])
 def test_run_merge_mirror_counts_the_kernels_atomics_on_card(cuda_device,
                                                              name):
     """The plain mirror issues exactly the global atomics that the kernel,
     built to count them, issues on the card: the mirror's walk (chunk
-    rule, runs of rows 8 apart) is the kernel's."""
+    rule, runs of rows 8 apart, row liveness, one atomic per group of
+    ``vector_width`` columns) is the kernel's, at every width."""
     from shacira_tpu_torch.kernels.build import load, take_global_atomics
     idx, vals, t = _card_case(name)
     vals = vals.astype(np.float32)
@@ -299,9 +357,7 @@ def test_run_merge_mirror_counts_the_kernels_atomics_on_card(cuda_device,
         torch.as_tensor(idx.astype(np.int32), device=cuda_device),
         torch.as_tensor(vals, device=cuda_device), t, lib=lib)
     counted = take_global_atomics(lib)
-    mirrored = sum(_mirror_merge(idx, torch.as_tensor(vals[:, c]), t)[0]
-                   .numel() for c in range(vals.shape[1]))
-    assert counted == mirrored
+    assert counted == _mirror_merge(idx, vals, t)[2]
     want = scatter.scatter_add_plain(torch.as_tensor(idx),
                                      torch.as_tensor(vals), t)
     torch.testing.assert_close(got.cpu(), want, rtol=0,
