@@ -1023,25 +1023,18 @@ SCENE_RES = 128           # analytic scene: 24 views of 128 x 128
 AFTER_PRUNE = 4           # training steps past the prune
 
 
+LAUNCHED = ('scatter_add', 'segment_sum', 'paged_gather',
+            'paged_gather_occupancy', 'paged_scatter', 'voxel_crossings')
+
+
 def _launch_counts():
-    from shacira_tpu_torch.accel import occupancy as occ
-    from shacira_tpu_torch.ops import paged_hash as ph
-    from shacira_tpu_torch.ops import scatter
-    return {'scatter_add': scatter.scatter_add.launches,
-            'segment_sum': scatter.segment_sum.launches,
-            'paged_gather': ph.paged_gather.launches,
-            'paged_gather_occupancy': ph.paged_gather.occupancy_launches,
-            'paged_scatter': ph.paged_scatter.launches,
-            'voxel_crossings': occ.voxel_crossings.launches}
+    from shacira_tpu_torch.utils import perf
+    return {k: int(perf.counted('launches/' + k)) for k in LAUNCHED}
 
 
 def _reset_launches():
-    from shacira_tpu_torch.accel import occupancy as occ
-    from shacira_tpu_torch.ops import paged_hash as ph
-    from shacira_tpu_torch.ops import scatter
-    scatter.reset_launches()
-    ph.reset_launches()
-    occ.reset_launches()
+    from shacira_tpu_torch.utils import perf
+    perf.reset_counts()
 
 
 def _delta(after, before):
@@ -1654,9 +1647,9 @@ def phase_image_parity(dev):
     import torch
     from shacira_tpu_torch import optim
     from shacira_tpu_torch.datasets.image import ImageDataset, pixel_coords
-    from shacira_tpu_torch.ops import scatter
     from shacira_tpu_torch.trainers.image_trainer import (
         ImageStepDraws, ImageTrainer, ImageTrainerConfig)
+    from shacira_tpu_torch.utils import perf
     from tools.make_synthetic_data import synth_photo
     h, w = 48, 64
     img = np.round(synth_photo(h, w, seed=3) * 255) / 255
@@ -1683,11 +1676,11 @@ def phase_image_parity(dev):
         kw = dict(ent_lambda=1e-3, temperature=0.5, lr_ldec=1e-2,
                   use_sga=True, do_recalib=True)
         m_cpu = cpu.step(*batches[0], d, **kw)
-        before = scatter.scatter_add.launches
+        before = perf.counted('launches/scatter_add')
         m_gpu = gpu.step(*batches[1], ImageStepDraws(
             sga_u=d.sga_u.to(dev), noise=d.noise.to(dev)), **kw)
         torch.cuda.synchronize()
-        b1 = scatter.scatter_add.launches - before
+        b1 = int(perf.counted('launches/scatter_add') - before)
         loss_c, loss_g = float(m_cpu['loss']), float(m_gpu['loss'])
         mu_c = dict(optim.tree_leaves_with_path(cpu.opt_state['mu']))
         worst, worst_path = 0.0, None

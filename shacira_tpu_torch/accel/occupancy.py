@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from shacira_tpu_torch.core.rays import Rays
+from shacira_tpu_torch.utils import perf
 
 
 @dataclass(frozen=True)
@@ -296,16 +297,8 @@ def voxel_crossings(state: dict, cfg: OccupancyGridConfig, rays: Rays,
     if dev.type != 'cuda':
         raise RuntimeError(f'voxel_crossings: unsupported device {dev}')
     out = _launch_dda(state, cfg, rays, max_intersections)
-    voxel_crossings.launches += 1
+    perf.count('launches/voxel_crossings', 1)
     return out
-
-
-voxel_crossings.launches = 0
-
-
-def reset_launches():
-    """Set the DDA wrapper's launch count to 0."""
-    voxel_crossings.launches = 0
 
 
 def raymarch_voxel(state: dict, cfg: OccupancyGridConfig, rays: Rays,

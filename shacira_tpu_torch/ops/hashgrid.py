@@ -16,7 +16,9 @@ bit-identical to JAX's uint32 arithmetic.
 Both encodes are ``torch.autograd.Function``s whose backward scatters into
 the concatenated ``[total_size, width]`` table gradient with ONE launch of
 the scatter kernel (``ops/scatter.py``), every LOD's indices offset by its
-``lod_first_idx``.
+``lod_first_idx``.  Every encode's backward runs in the range
+``backward/encode``, on autograd's thread, so the profiler gives it the
+kernels it launches.
 
 The ``'paged'`` layout (``hash_layout='paged'``) places a hashed LOD's
 entries page by page: ``entry = page(cell) * E + fold_hash(xor_hash, E)``,
@@ -34,6 +36,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from shacira_tpu_torch.ops.scatter import scatter_add
 
@@ -250,12 +253,13 @@ class _HashEncode(torch.autograd.Function):
             return None, None, None
         gidx, w = ctx.saved_tensors
         spec = ctx.spec
-        g = g.float()                                     # [N, L, F]
-        f = g.shape[-1]
-        upd = g.permute(1, 0, 2)[:, :, None, :] * w[..., None]  # [L,N,C,F]
-        grad = scatter_add(gidx.reshape(-1), upd.reshape(-1, f),
-                           spec.total_size)
-        return None, grad.to(ctx.cb_dtype), None
+        with record_function('backward/encode'):
+            g = g.float()                                 # [N, L, F]
+            f = g.shape[-1]
+            upd = g.permute(1, 0, 2)[:, :, None, :] * w[..., None]
+            grad = scatter_add(gidx.reshape(-1), upd.reshape(-1, f),
+                               spec.total_size).to(ctx.cb_dtype)
+        return None, grad, None
 
 
 def hash_encode(coords: torch.Tensor, codebook: torch.Tensor,
@@ -287,17 +291,18 @@ class _HashEncodeAffine(torch.autograd.Function):
         gidx, w, zbar, scale = ctx.saved_tensors
         spec = ctx.spec
         z_dtype, scale_dtype, shift_dtype = ctx.dtypes
-        g = g.float()                                     # [N, L, F]
-        ld = scale.shape[0]
-        gz = (g @ scale.float().t()).permute(1, 0, 2)     # [L, N, ld]
-        upd = gz[:, :, None, :] * w[..., None]            # [L, N, C, ld]
-        grad_z = scatter_add(gidx.reshape(-1), upd.reshape(-1, ld),
-                             spec.total_size)
-        # zbar[l, n] = sum_c w * z_c, so sum over corners is already taken
-        grad_scale = torch.einsum('lnd,nlf->df', zbar, g)
-        grad_shift = torch.einsum('lnc,nlf->f', w, g)[None]
-        return (None, grad_z.to(z_dtype), grad_scale.to(scale_dtype),
-                grad_shift.to(shift_dtype), None, None)
+        with record_function('backward/encode'):
+            g = g.float()                                 # [N, L, F]
+            ld = scale.shape[0]
+            gz = (g @ scale.float().t()).permute(1, 0, 2)  # [L, N, ld]
+            upd = gz[:, :, None, :] * w[..., None]        # [L, N, C, ld]
+            grad_z = scatter_add(gidx.reshape(-1), upd.reshape(-1, ld),
+                                 spec.total_size)
+            # zbar[l, n] = sum_c w * z_c: the sum over corners is taken
+            grad_scale = torch.einsum('lnd,nlf->df', zbar, g)
+            grad_shift = torch.einsum('lnc,nlf->f', w, g)[None]
+            return (None, grad_z.to(z_dtype), grad_scale.to(scale_dtype),
+                    grad_shift.to(shift_dtype), None, None)
 
 
 def hash_encode_affine(coords: torch.Tensor, z: torch.Tensor,
@@ -387,14 +392,15 @@ class _StaticHashEncode(torch.autograd.Function):
     def backward(ctx, g):
         spec, arrays = ctx.meta.spec, ctx.arrays
         c = 2 ** spec.dim
-        g = g.float()                                     # [N, L, F]
-        grads = []
-        for lod in range(spec.num_lods):
-            src, srcw = arrays['src'][lod], arrays['srcw'][lod]   # [S, K]
-            gl = g[:, lod, :][torch.div(src.long(), c,
-                                        rounding_mode='floor')]   # [S,K,F]
-            grads.append(torch.sum(gl * srcw[..., None], dim=1))
-        return torch.cat(grads).to(ctx.cb_dtype), None, None
+        with record_function('backward/encode'):
+            g = g.float()                                 # [N, L, F]
+            grads = []
+            for lod in range(spec.num_lods):
+                src, srcw = arrays['src'][lod], arrays['srcw'][lod]  # [S, K]
+                gl = g[:, lod, :][torch.div(src.long(), c,
+                                            rounding_mode='floor')]  # [S,K,F]
+                grads.append(torch.sum(gl * srcw[..., None], dim=1))
+            return torch.cat(grads).to(ctx.cb_dtype), None, None
 
 
 def static_hash_encode(arrays: dict, codebook: torch.Tensor,

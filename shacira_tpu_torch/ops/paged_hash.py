@@ -27,9 +27,10 @@ that).  The TPU's staging of table windows (``_slab_tables``,
 ``occ_slab_tables``) and the fold of window partials back into the table
 have no counterpart.  Beside each kernel is a plain PyTorch version of the
 same function, clipping included; a CPU tensor takes it, a CUDA tensor
-launches the kernel or raises.  Each wrapper counts its launches
-(``paged_gather.launches``, of them ``paged_gather.occupancy_launches``
-with the occupancy row, ``paged_scatter.launches``).
+launches the kernel or raises.  Each wrapper counts its launches in the
+counter registry (``launches/paged_gather``, of them
+``launches/paged_gather_occupancy`` with the occupancy row,
+``launches/paged_scatter``; ``utils/perf.py``).
 
 Corner math, shared by kernels and plain versions:
 
@@ -59,11 +60,13 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from shacira_tpu_torch.ops.hashgrid import (
     PRIMES, HashGridSpec, _U32, _cell_and_frac, _corner_offsets,
     _corner_weights, fold_hash, paged_params, use_direct_index)
 from shacira_tpu_torch.ops.scatter import scatter_add_plain
+from shacira_tpu_torch.utils import perf
 
 NEIGH = 4                 # pages per axis of a grouping cell's neighbourhood
 N_NEIGH = NEIGH ** 3
@@ -685,8 +688,9 @@ def paged_gather(coords_s, slot_valid, block_cell, z, static: PagedStatic,
         raise RuntimeError(f'paged_gather: unsupported device {z.device}')
     out = _launch_gather(coords_s, slot_valid, block_cell, z, static, occ)
     if out.numel():
-        paged_gather.launches += 1
-        paged_gather.occupancy_launches += occ is not None
+        perf.count('launches/paged_gather', 1)
+        if occ is not None:
+            perf.count('launches/paged_gather_occupancy', 1)
     return out
 
 
@@ -706,10 +710,6 @@ def _launch_gather(coords_s, slot_valid, block_cell, z, static: PagedStatic,
     return out
 
 
-paged_gather.launches = 0
-paged_gather.occupancy_launches = 0      # those with the occupancy row
-
-
 def paged_scatter(coords_s, slot_valid, block_cell, g,
                   static: PagedStatic) -> torch.Tensor:
     """B3: the [T, ld] f32 table gradient of :func:`paged_gather` for the
@@ -723,7 +723,7 @@ def paged_scatter(coords_s, slot_valid, block_cell, g,
         raise RuntimeError(f'paged_scatter: unsupported device {g.device}')
     grad = _launch_scatter(coords_s, slot_valid, block_cell, g, static)
     if g.numel():
-        paged_scatter.launches += 1
+        perf.count('launches/paged_scatter', 1)
     return grad
 
 
@@ -742,16 +742,6 @@ def _launch_scatter(coords_s, slot_valid, block_cell, g, static: PagedStatic,
     return grad
 
 
-paged_scatter.launches = 0
-
-
-def reset_launches():
-    """Set both wrappers' launch counts to 0."""
-    paged_gather.launches = 0
-    paged_gather.occupancy_launches = 0
-    paged_scatter.launches = 0
-
-
 class _PagedInterp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, coords_s, slot_valid, block_cell, z, static, occ):
@@ -764,10 +754,12 @@ class _PagedInterp(torch.autograd.Function):
     def backward(ctx, g):
         coords_s, slot_valid, block_cell = ctx.saved_tensors
         static = ctx.static
-        # the occupancy row has no gradient: B3 sees the latent rows only
-        g = g[:, :len(static.all_lods)].contiguous()
-        grad = paged_scatter(coords_s, slot_valid, block_cell, g, static)
-        return None, None, None, grad.to(ctx.z_dtype), None, None
+        with record_function('backward/encode'):
+            # the occupancy row has no gradient: B3 sees the latent rows
+            g = g[:, :len(static.all_lods)].contiguous()
+            grad = paged_scatter(coords_s, slot_valid, block_cell, g,
+                                 static).to(ctx.z_dtype)
+        return None, None, None, grad, None, None
 
 
 def paged_interp_lods(coords_s: torch.Tensor, slot_valid: torch.Tensor,

@@ -29,8 +29,9 @@ atomics change the summation order from run to run.  Indices outside the
 table are dropped by the kernel and the plain version alike, as the Pallas
 kernel drops them.
 
-Each wrapper counts its kernel launches (``scatter_add.launches``,
-``segment_sum.launches``) so a run can show the main path used the kernel.
+Each wrapper counts its kernel launches in the counter registry
+(``launches/scatter_add``, ``launches/segment_sum``; ``utils/perf.py``) so
+a run can show the main path used the kernel.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ import ctypes
 import torch
 
 from shacira_tpu_torch.kernels.build import load
+from shacira_tpu_torch.utils import perf
 
 
 def _check(idx: torch.Tensor, vals: torch.Tensor):
@@ -187,11 +189,8 @@ def scatter_add(idx: torch.Tensor, vals: torch.Tensor,
     if vals.device.type != 'cuda':
         raise RuntimeError(f'scatter_add: unsupported device {vals.device}')
     out = _launch_scatter(idx, vals, table_size)
-    scatter_add.launches += 1
+    perf.count('launches/scatter_add', 1)
     return out
-
-
-scatter_add.launches = 0
 
 
 def _segment_sum_forward(idx, vals, num_rows):
@@ -200,7 +199,7 @@ def _segment_sum_forward(idx, vals, num_rows):
     if vals.device.type != 'cuda':
         raise RuntimeError(f'segment_sum: unsupported device {vals.device}')
     out = _launch_scatter(idx, vals, num_rows)
-    segment_sum.launches += 1
+    perf.count('launches/segment_sum', 1)
     return out
 
 
@@ -225,9 +224,6 @@ def segment_sum(idx: torch.Tensor, vals: torch.Tensor,
     compact tracer's zero-filled tail slots carry row 0.  The backward is
     the gather ``ct[idx]``."""
     return _SegmentSum.apply(idx, vals, num_rows)
-
-
-segment_sum.launches = 0
 
 
 class _GatherRows(torch.autograd.Function):
@@ -285,9 +281,3 @@ def gather_rows(tables, idxs):
         raise ValueError('tables of one width expected, got '
                          f'{[tuple(t.shape) for t in tables]}')
     return list(_GatherRows.apply(len(tables), *tables, *idxs))
-
-
-def reset_launches():
-    """Set every wrapper's launch count to 0."""
-    scatter_add.launches = 0
-    segment_sum.launches = 0

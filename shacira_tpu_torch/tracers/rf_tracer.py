@@ -57,6 +57,11 @@ integrate each with the rgb's weights into an ``[R, k]`` buffer of that
 name, the compact path in the same ``segment_sum`` payload as rgb, alpha
 and depth; the paged trace's head returns (rgb, density) only, as in the
 JAX tracer.
+
+While a profiler records, a training step's flat compaction counts its
+live samples, those kept under the budget and the budget's slots
+(``trace/live_samples``, ``trace/kept_samples``, ``trace/slots`` in
+``utils/perf.py``); renders, which take no gradient, count nothing.
 """
 from __future__ import annotations
 
@@ -71,6 +76,7 @@ from shacira_tpu_torch.accel import occupancy as occ
 from shacira_tpu_torch.core.rays import Rays
 from shacira_tpu_torch.ops import paged_hash as ph
 from shacira_tpu_torch.ops.scatter import segment_sum
+from shacira_tpu_torch.utils import perf
 
 
 @dataclass(frozen=True)
@@ -215,6 +221,12 @@ def _stride_compact(flat_mask: torch.Tensor, budget: int):
     uniformly spread.  Returns (src [budget] int64 source positions,
     valid [budget] bool, slots [n] int64: the slot of each source row, or
     ``budget`` for dropped rows)."""
+    return _stride_compact_counts(flat_mask, budget)[:3]
+
+
+def _stride_compact_counts(flat_mask: torch.Tensor, budget: int):
+    """:func:`_stride_compact`'s three results, then the live rows and
+    the rows kept, device int64 scalars."""
     n = flat_mask.shape[0]
     dev = flat_mask.device
     cs = torch.cumsum(flat_mask.long(), dim=0)                 # inclusive
@@ -229,7 +241,7 @@ def _stride_compact(flat_mask: torch.Tensor, budget: int):
     src.scatter_(0, slots, torch.arange(n, device=dev))
     n_keep = -(-total // stride)
     valid = torch.arange(budget, device=dev) < torch.clamp(n_keep, max=budget)
-    return src[:budget], valid, slots
+    return src[:budget], valid, slots, total, n_keep
 
 
 def _segmented_excl_f64(x: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
@@ -853,7 +865,12 @@ def _trace_compact_flat(field_fn, rows: dict, flat_mask: torch.Tensor,
     ``rows['deltas']``) and integrate them compactly; ``ray_of(src)`` gives
     the ray of flat rows, non-decreasing over the live ones."""
     with record_function('trace/compact'):
-        src, valid, _ = _stride_compact(flat_mask, max_samples)
+        src, valid, _, live, kept = _stride_compact_counts(flat_mask,
+                                                           max_samples)
+        if perf.tracing() and torch.is_grad_enabled():
+            perf.count('trace/live_samples', live)
+            perf.count('trace/kept_samples', kept)
+            perf.count('trace/slots', max_samples)
         ray = ray_of(src)
         coords, dirs = rows['samples'].reshape(-1, 3)[src], rays.dirs[ray]
     color, density, extras = _eval_field(field_fn, coords, dirs)

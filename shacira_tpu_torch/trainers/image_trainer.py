@@ -359,7 +359,8 @@ class ImageTrainer:
         masks = None
         if self.cfg.grow_every > 0:
             # one upload a chunk: each host-to-device copy syncs the stream
-            masks = torch.as_tensor(xs['lod_mask'], device=self.device)
+            with record_function('step/presample'):
+                masks = torch.as_tensor(xs['lod_mask'], device=self.device)
         metrics = None
         for i in range(len(xs['ent_lambda'])):
             with record_function('step/draws'):
@@ -404,20 +405,22 @@ class ImageTrainer:
             if use_sga:
                 n = min(n, max(1, self._sga_flip() - e0 + 1))
             n = self._cadence_clip(e0, n)
-            xs = self._schedule_arrays(e0, n)
+            with record_function('step/presample'):
+                xs = self._schedule_arrays(e0, n)
             metrics = self._run_steps(xs, use_sga, lambda i, d: (coords, gt))
             self.epoch += n
             done += n
             if self.is_writer and cfg.log_every > 0 and (
                     self.epoch % cfg.log_every == 0 or done >= epochs):
-                entry = self.size_report(use_codec=False)
-                entry.update(epoch=self.epoch,
-                             psnr=float(metrics['psnr']),
-                             rgb_loss=float(metrics['rgb_loss']),
-                             best_psnr=float(self.best_psnr),
-                             elapsed=time.time() - t0)
-                if self.entropy_enabled:
-                    entry['ent_loss'] = float(metrics['ent_loss'])
+                with record_function('step/log'):
+                    entry = self.size_report(use_codec=False)
+                    entry.update(epoch=self.epoch,
+                                 psnr=float(metrics['psnr']),
+                                 rgb_loss=float(metrics['rgb_loss']),
+                                 best_psnr=float(self.best_psnr),
+                                 elapsed=time.time() - t0)
+                    if self.entropy_enabled:
+                        entry['ent_loss'] = float(metrics['ent_loss'])
                 self.history.append(entry)
                 if self.logger is not None:
                     for k in ('psnr', 'rgb_loss', 'bpp', 'total_size_kb',
@@ -567,8 +570,9 @@ class ImageTrainer:
                     n = min(n, max(1, nxt - done))
             # schedules keyed by epoch; recalibration / noise by iteration
             iters = np.arange(done + 1, done + n + 1)
-            xs = self._schedule_arrays(0, n, epochs=(iters - 1) // bpe + 1,
-                                       iters=iters)
+            with record_function('step/presample'):
+                xs = self._schedule_arrays(
+                    0, n, epochs=(iters - 1) // bpe + 1, iters=iters)
 
             def batch_fn(i, draws, _it0=done + 1):
                 idx = (draws.idx if draws.idx is not None
@@ -585,10 +589,11 @@ class ImageTrainer:
             if self.is_writer and cfg.log_every > 0 and log_fn and (
                     (crossed and self.epoch % cfg.log_every == 0)
                     or done >= end):
-                entry = {'epoch': self.epoch, 'iteration': done,
-                         'psnr': float(metrics['psnr']),
-                         'rgb_loss': float(metrics['rgb_loss']),
-                         'elapsed': time.time() - t0}
+                with record_function('step/log'):
+                    entry = {'epoch': self.epoch, 'iteration': done,
+                             'psnr': float(metrics['psnr']),
+                             'rgb_loss': float(metrics['rgb_loss']),
+                             'elapsed': time.time() - t0}
                 if self.logger is not None:
                     for k in ('psnr', 'rgb_loss'):
                         self.logger.scalar(f'train/{k}', entry[k], done)

@@ -731,20 +731,21 @@ class MultiviewTrainer:
                     n = min(n, max(1, nxt - self.iteration))
             use_sga = (self.ldecode_enabled and cfg.use_sga
                        and (e0 / cfg.epochs) <= cfg.decay_period)
-            # drawn before the ray batches, from the same stream, as the
-            # JAX trainer draws them
-            masks = self._lod_masks(range(it0, it0 + n))
-            # one upload a chunk: each host-to-device copy syncs the stream;
-            # every rank draws the global batch and, tracing its own rays,
-            # keeps its part of it
-            batch = self._presample(n)
-            if self._shard_ray_active:
-                ro, rd, gt = pmesh.shard_axis(self.mesh, 1, *batch)
-            else:
-                ro, rd, gt = (torch.as_tensor(a, device=self.device)
-                              for a in batch)
-            if masks is not None:
-                masks = torch.as_tensor(masks, device=self.device)
+            with record_function('step/presample'):
+                # drawn before the ray batches, from the same stream, as the
+                # JAX trainer draws them
+                masks = self._lod_masks(range(it0, it0 + n))
+                # one upload a chunk: each host-to-device copy syncs the
+                # stream; every rank draws the global batch and, tracing its
+                # own rays, keeps its part of it
+                batch = self._presample(n)
+                if self._shard_ray_active:
+                    ro, rd, gt = pmesh.shard_axis(self.mesh, 1, *batch)
+                else:
+                    ro, rd, gt = (torch.as_tensor(a, device=self.device)
+                                  for a in batch)
+                if masks is not None:
+                    masks = torch.as_tensor(masks, device=self.device)
             for i in range(n):
                 it = it0 + i
                 e = self._epoch_of(it)
@@ -762,18 +763,21 @@ class MultiviewTrainer:
             if (cfg.prune_every > 0 and self.iteration > 1
                     and self.iteration % cfg.prune_every == 0):
                 with self.step_lock:
-                    self.prune()
+                    with record_function('step/prune'):
+                        self.prune()
                     if cfg.adaptive_budget:
-                        self._adapt_budget()
+                        with record_function('step/adapt_budget'):
+                            self._adapt_budget()
             if self.is_writer and (log_fn or self.logger is not None):
-                entry = {'iteration': self.iteration,
-                         'epoch': self._epoch_of(self.iteration),
-                         'loss': float(metrics['loss']),
-                         'rgb_loss': float(metrics['rgb_loss']),
-                         'psnr': float(metrics['psnr']),
-                         'occupancy': float(torch.mean(
-                             self.occ_state['occ'].float())),
-                         'elapsed': time.time() - t0}
+                with record_function('step/log'):
+                    entry = {'iteration': self.iteration,
+                             'epoch': self._epoch_of(self.iteration),
+                             'loss': float(metrics['loss']),
+                             'rgb_loss': float(metrics['rgb_loss']),
+                             'psnr': float(metrics['psnr']),
+                             'occupancy': float(torch.mean(
+                                 self.occ_state['occ'].float())),
+                             'elapsed': time.time() - t0}
                 if cfg.adaptive_budget and self.tracer_cfg.max_samples > 0:
                     entry['sample_budget'] = \
                         self.active_tracer_cfg.max_samples

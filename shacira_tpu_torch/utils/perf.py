@@ -1,20 +1,32 @@
-"""Profiling: ``device_sync``, ``PerfTimer``, ``named_range`` and
-``trace_to``, the port of ``shacira_tpu/utils/perf.py``.
+"""Profiling: ``device_sync``, the counter registry and ``trace_to``, the
+port of ``shacira_tpu/utils/perf.py``.
 
 The JAX package syncs by fetching one element because its relay's
 ``block_until_ready`` did not block; here ``torch.cuda.synchronize`` does.
-Named ranges go to ``torch.profiler`` (and to NVTX on the card), the trace
-context to a Chrome trace.
+Spans are ``torch.profiler.record_function`` ranges, opened where the work
+happens; the trace context writes them to a Chrome trace.
+
+Counters: :func:`count` adds a host number or a device scalar under a name.
+Host numbers (the kernels' launch counts) are always added.  A device
+scalar is added only while a ``torch.profiler`` session records
+(:func:`tracing`), in place into one device accumulator per name, so a
+step neither syncs nor launches anything for it when nothing profiles;
+:func:`counted` reads a total once, after the block.
 """
 from __future__ import annotations
 
 import contextlib
+import json
 import os
-import time
-from typing import Optional
+import threading
+from typing import Dict, Optional, Union
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
+
+_host: Dict[str, float] = {}
+_device: Dict[str, torch.Tensor] = {}
+_lock = threading.Lock()      # the autograd and render threads count too
 
 
 def _first_tensor(x) -> Optional[torch.Tensor]:
@@ -38,51 +50,56 @@ def device_sync(x=None):
         torch.cuda.synchronize(t.device)
 
 
-class PerfTimer:
-    """Named checkpoint timer: :meth:`check` returns the seconds since the
-    previous checkpoint, after syncing the device of ``sync_value``."""
-
-    def __init__(self, activate: bool = True):
-        self.activate = activate
-        self.reset()
-
-    def reset(self):
-        self.start = time.time()
-        self.prev = self.start
-        self.records = []
-
-    def check(self, name: str = '', sync_value=None) -> float:
-        if not self.activate:
-            return 0.0
-        device_sync(sync_value)
-        now = time.time()
-        dt = now - self.prev
-        self.prev = now
-        self.records.append((name, dt))
-        return dt
-
-    def summary(self) -> str:
-        total = sum(dt for _, dt in self.records)
-        lines = [f'{n or "?"}: {dt * 1e3:.2f} ms '
-                 f'({dt / max(total, 1e-12):.0%})' for n, dt in self.records]
-        return ' | '.join(lines)
+def tracing() -> bool:
+    """True while a ``torch.profiler`` session records."""
+    return torch.autograd._profiler_enabled()
 
 
-@contextlib.contextmanager
-def named_range(name: str):
-    """A ``torch.profiler`` range, and an NVTX range when a card is
-    present."""
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(record_function(name))
-        if torch.cuda.is_available():
-            stack.enter_context(torch.cuda.nvtx.range(name))
-        yield
+def count(name: str, value: Union[int, float, torch.Tensor]):
+    """Add ``value`` to counter ``name``: a host number always, a device
+    scalar only while :func:`tracing` (one in-place add, no sync)."""
+    if not isinstance(value, torch.Tensor):
+        with _lock:
+            _host[name] = _host.get(name, 0) + value
+        return
+    if not tracing():
+        return
+    with _lock:
+        acc = _device.get(name)
+        if acc is None:
+            # the first value's copy is the accumulator: one device op, as
+            # each later add is
+            _device[name] = value.detach().to(
+                torch.float64 if value.is_floating_point() else torch.int64,
+                copy=True)
+        else:
+            acc.add_(value.detach())
+
+
+def counted(name: str) -> float:
+    """Counter ``name``'s total (0 where nothing was counted); reads the
+    device once."""
+    acc = _device.get(name)
+    return float(_host.get(name, 0)) + (0.0 if acc is None else float(acc))
+
+
+def counts() -> Dict[str, float]:
+    """Every counter's total."""
+    return {n: counted(n) for n in sorted(set(_host) | set(_device))}
+
+
+def reset_counts():
+    """Drop every counter and device accumulator."""
+    with _lock:
+        _host.clear()
+        _device.clear()
 
 
 @contextlib.contextmanager
 def trace_to(log_dir: Optional[str]):
     """Profile the block (host, and the card where there is one) and write
-    a Chrome trace, ``log_dir/trace.json``; nothing for ``None``."""
+    a Chrome trace, ``log_dir/trace.json``, and each counter's total over
+    the block, ``log_dir/counters.json``; nothing for ``None``."""
     if log_dir is None:
         yield
         return
@@ -90,6 +107,10 @@ def trace_to(log_dir: Optional[str]):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    before = counts()
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, 'trace.json'))
+    block = {n: v - before.get(n, 0.0) for n, v in counts().items()}
+    with open(os.path.join(log_dir, 'counters.json'), 'w') as f:
+        json.dump({n: v for n, v in block.items() if v}, f, indent=1)

@@ -21,6 +21,7 @@ import pytest
 torch = pytest.importorskip('torch')
 from shacira_tpu_torch.ops import hashgrid as thg  # noqa: E402
 from shacira_tpu_torch.ops import paged_hash as tph  # noqa: E402
+from shacira_tpu_torch.utils import perf  # noqa: E402
 
 try:        # the card's machine has no JAX: only the kernel tests run there
     import jax
@@ -246,11 +247,11 @@ def _card_inputs(dev, page_res, ld):
 @pytest.mark.parametrize('ld,page_res', [(1, 16), (2, 32)])
 def test_gather_kernel_matches_plain_on_card(cuda_device, ld, page_res):
     coords, valid, bc, z, _, static = _card_inputs(cuda_device, page_res, ld)
-    before = tph.paged_gather.launches
+    before = perf.counted('launches/paged_gather')
     got = tph.paged_gather(coords, valid, bc, z, static)
     want = tph.paged_gather_plain(coords, valid, bc, z, static)
     torch.cuda.synchronize()
-    assert tph.paged_gather.launches == before + 1
+    assert perf.counted('launches/paged_gather') == before + 1
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))
 
@@ -259,11 +260,11 @@ def test_gather_kernel_matches_plain_on_card(cuda_device, ld, page_res):
 @pytest.mark.parametrize('ld,page_res', [(1, 16), (2, 32)])
 def test_scatter_kernel_matches_plain_on_card(cuda_device, ld, page_res):
     coords, valid, bc, _, g, static = _card_inputs(cuda_device, page_res, ld)
-    before = tph.paged_scatter.launches
+    before = perf.counted('launches/paged_scatter')
     got = tph.paged_scatter(coords, valid, bc, g, static)
     want = tph.paged_scatter_plain(coords, valid, bc, g, static)
     torch.cuda.synchronize()
-    assert tph.paged_scatter.launches == before + 1
+    assert perf.counted('launches/paged_scatter') == before + 1
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))
 
@@ -571,11 +572,13 @@ def test_gather_kernel_occupancy_row_on_card(cuda_device, which, occ_res, b):
     args = tuple(torch.as_tensor(a, device=cuda_device)
                  for a in (coords, valid, bc)) + (z, static)
     packed = tph.pack_occupancy(torch.as_tensor(occ, device=cuda_device))
-    before = tph.paged_gather.launches
+    before = perf.counted('launches/paged_gather')
+    before_occ = perf.counted('launches/paged_gather_occupancy')
     got = tph.paged_gather(*args, packed)
     want = tph.paged_gather_plain(*args, packed)
     torch.cuda.synchronize()
-    assert tph.paged_gather.launches == before + 1
+    assert perf.counted('launches/paged_gather') == before + 1
+    assert perf.counted('launches/paged_gather_occupancy') == before_occ + 1
     assert got.shape == want.shape == (coords.shape[0],
                                        len(static.all_lods) + 1, 2)
     assert torch.equal(got[:, -1], want[:, -1])

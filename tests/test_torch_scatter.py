@@ -12,6 +12,7 @@ import pytest
 torch = pytest.importorskip('torch')
 from shacira_tpu_torch.kernels import build  # noqa: E402
 from shacira_tpu_torch.ops import scatter  # noqa: E402
+from shacira_tpu_torch.utils import perf  # noqa: E402
 
 try:        # the card's machine has no JAX: only the kernel tests run there
     import jax
@@ -105,12 +106,12 @@ def test_segment_sum_and_grad_match_jax():
 
 
 def test_plain_versions_do_not_count_launches():
-    scatter.reset_launches()
+    perf.reset_counts()
     idx, vals = _inputs(3, 50, 9, 2)
     scatter.scatter_add(torch.as_tensor(idx), torch.as_tensor(vals), 9)
     scatter.segment_sum(torch.as_tensor(idx), torch.as_tensor(vals), 9)
-    assert scatter.scatter_add.launches == 0
-    assert scatter.segment_sum.launches == 0
+    assert perf.counted('launches/scatter_add') == 0
+    assert perf.counted('launches/segment_sum') == 0
 
 
 def test_non_cpu_tensor_without_kernel_raises():
@@ -143,10 +144,10 @@ def test_scatter_kernel_matches_plain_on_card(cuda_device, n, t, f):
     idx, vals = _inputs(4, n, t, f)
     idx_t = torch.as_tensor(idx, device=cuda_device)
     vals_t = torch.as_tensor(vals, device=cuda_device)
-    before = scatter.scatter_add.launches
+    before = perf.counted('launches/scatter_add')
     got = scatter.scatter_add(idx_t, vals_t, t)
     torch.cuda.synchronize()
-    assert scatter.scatter_add.launches == before + 1
+    assert perf.counted('launches/scatter_add') == before + 1
     want = scatter.scatter_add_plain(idx_t, vals_t, t)
     # float atomics add in another order: 1e-5 of the largest sum
     err = float((got - want).abs().max())
@@ -167,10 +168,10 @@ def test_segment_sum_at_the_extras_width_on_card(cuda_device):
     vals[valid:] = 0.0
     idx_t = torch.as_tensor(ids, device=cuda_device)
     vals_t = torch.as_tensor(vals, device=cuda_device)
-    before = scatter.segment_sum.launches
+    before = perf.counted('launches/segment_sum')
     got = scatter.segment_sum(idx_t, vals_t, rays)
     torch.cuda.synchronize()
-    assert scatter.segment_sum.launches == before + 1
+    assert perf.counted('launches/segment_sum') == before + 1
     want = scatter.scatter_add_plain(idx_t, vals_t, rays)
     err = float((got - want).abs().max())
     assert err <= 1e-5 * float(want.abs().max())

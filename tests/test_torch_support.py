@@ -1,5 +1,5 @@
 """Port parity of the support modules: BitEstimatorN, the channel kit and
-RenderBuffer, PerfTimer and named ranges, FiLM, SPCField,
+RenderBuffer, the counter registry, FiLM, SPCField,
 RandomViewDataset, image processing, object transforms, framework state,
 and the static-coordinate encode plan, each against the JAX package on the
 same inputs (numpy, from a seed) and parameters (``params_from_jax``).
@@ -159,21 +159,29 @@ def test_renderbuffer_save_exr_reads_back(tmp_path):
 
 
 def test_perf_timer_and_named_range():
-    from shacira_tpu_torch.utils.perf import PerfTimer, device_sync, \
-        named_range
-    t = PerfTimer()
-    t.check('a')
+    """``device_sync`` and the counter registry: host numbers always,
+    device scalars only while a profiler records, one accumulator a name
+    and the totals read once."""
+    from shacira_tpu_torch.utils import perf
     x = torch.ones((8,)) * 2
-    dt = t.check('b', sync_value={'x': [x]})
-    assert dt >= 0 and 'b' in t.summary() and len(t.records) == 2
-    device_sync(None)
-    device_sync(x)
-    with torch.profiler.profile() as prof:
-        with named_range('scope'):
-            _ = torch.sum(x)
-    assert any(e.name == 'scope' for e in prof.events())
-    off = PerfTimer(activate=False)
-    assert off.check('a') == 0.0 and off.records == []
+    perf.device_sync(None)
+    perf.device_sync({'x': [x]})
+    perf.reset_counts()
+    perf.count('host', 2)
+    perf.count('host', 3)
+    perf.count('dev', torch.sum(x).long())            # no profiler: dropped
+    assert perf.counted('host') == 5.0 and perf.counted('dev') == 0.0
+    assert perf._device == {} and not perf.tracing()
+    with torch.profiler.profile():
+        assert perf.tracing()
+        perf.count('dev', torch.sum(x).long())
+        perf.count('dev', torch.tensor(4))
+        perf.count('dev_f', torch.tensor(0.5))
+    assert perf.counted('dev') == 20.0 and perf.counted('dev_f') == 0.5
+    assert perf._device['dev'].dtype == torch.int64
+    assert perf.counts() == {'dev': 20.0, 'dev_f': 0.5, 'host': 5.0}
+    perf.reset_counts()
+    assert perf.counts() == {} and perf.counted('host') == 0.0
 
 
 def test_film_conditioner_matches_jax():

@@ -17,6 +17,7 @@ torch = pytest.importorskip('torch')
 import chip_smoke  # noqa: E402
 from shacira_tpu_torch.accel import occupancy as tocc  # noqa: E402
 from shacira_tpu_torch.core.rays import make_rays  # noqa: E402
+from shacira_tpu_torch.utils import perf  # noqa: E402
 
 
 def _rays(n: int, seed: int, axis_aligned: bool = False):
@@ -85,9 +86,9 @@ def test_walk_stops_where_nothing_more_can_be_recorded():
     walked = ahead.sum(dim=1)
     n_steps = 3 * cfg.res + 2
     assert bool(((walked > 0) & (walked < n_steps)).any())   # stops early
-    before = tocc.voxel_crossings.launches
+    before = perf.counted('launches/voxel_crossings')
     out = tocc.voxel_crossings(state, cfg, rays, 16)          # CPU: plain
-    assert tocc.voxel_crossings.launches == before
+    assert perf.counted('launches/voxel_crossings') == before
     np.testing.assert_array_equal(out['valid'].sum(dim=1).numpy(),
                                   np.minimum(occ_l.sum(dim=1).numpy(), 16))
 
@@ -141,11 +142,11 @@ def test_dda_kernel_matches_plain_on_card(cuda_device, level, density, I,
     occ_t = torch.as_tensor(_grid(level, density, seed=3), device=cuda_device)
     rays = make_rays(*(torch.as_tensor(v, device=cuda_device)
                        for v in (o, d, dmin, dmax)))
-    before = tocc.voxel_crossings.launches
+    before = perf.counted('launches/voxel_crossings')
     got = tocc.voxel_crossings({'occ': occ_t}, cfg, rays, I)
     want = tocc.voxel_crossings_plain({'occ': occ_t}, cfg, rays, I)
     torch.cuda.synchronize()
-    assert tocc.voxel_crossings.launches == before + 1
+    assert perf.counted('launches/voxel_crossings') == before + 1
     assert torch.equal(got['valid'], want['valid'])
     assert torch.equal(got['entries'], want['entries'])
     assert torch.equal(got['exits'], want['exits'])
