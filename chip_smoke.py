@@ -17,7 +17,11 @@ Phases, each of which must pass (exit code 1 otherwise):
                compute the least time the card could take (bytes over 3.35
                TB/s, or f32 operations over 67 TFLOP/s).  Scatter B1 (flat
                hash backward on random points and on the step's
-               ray-ordered samples, per-ray sums), paged gather B2 (train
+               ray-ordered samples, per-ray sums), the flat encode's
+               forward E1 (the lego step's and prune's shapes, kodak's 2D
+               lattice, HashGrid's dense march, an SDF step: corner rows
+               bit-identical, weights within an ulp, features within 1e-6
+               of the largest value), paged gather B2 (train
                and prune shapes, and at train shapes with its occupancy row
                of a 128^3 grid, which must equal the plain version's
                exactly) and paged scatter B3.  For B1 and B3 also
@@ -426,6 +430,128 @@ def extras_payload(payload):
     extra = torch.randn((payload.shape[0], 3), generator=gen,
                         device=payload.device)
     return torch.cat([payload, extra * (payload[:, 3:4] != 0)], dim=1)
+
+
+def encode_bound(n: int, lods: int, dim: int, f: int, ld: int,
+                 save: bool) -> float:
+    """Least ms of kernel E1: the coordinates read once and everything it
+    writes (features; with ``save`` also gidx, w and zbar) at 3.35 TB/s."""
+    per_lod = f + (2 * 2 ** dim + ld if save else 0)
+    return (n * dim + n * lods * per_lod) * 4 / HBM_BYTES_PER_S * 1e3
+
+
+def encode_inputs(dev):
+    """E1's inputs at the shapes of the paths that run it, name ->
+    (coords [N, dim], table [T, F], zt [T, ld] or None, spec, save, reps,
+    use):
+
+    * ``hash_encode``: the lego step, the stride-compacted 1,048,576 rows
+      of ``ray_ordered_points``, 24 LODs of the affine tables (decoded,
+      F = 4, and z, ld = 1), with the tensors its backward reads;
+    * ``hash_encode_prune``: the prune, one jittered point in each of the
+      2,097,152 occupancy cells, the decoded table (F = 4), no gradient;
+    * ``hash_encode_image``: kodak's full-image step, the 512 x 768 pixel
+      lattice, 24 2D LODs of the affine tables (F = 1, ld = 1), with
+      gradient;
+    * ``hash_encode_hash``: HashGrid's dense march, 4096 x 1024 samples,
+      16 LODs at F = 2, with gradient;
+    * ``hash_encode_sdf``: an SDF demo step, 4096 points, 5 LODs at F = 4,
+      with gradient."""
+    import torch
+    from shacira_tpu_torch.accel import occupancy as occ
+    from shacira_tpu_torch.datasets.image import pixel_coords
+    from shacira_tpu_torch.ops.hashgrid import (
+        HashGridSpec, geometric_resolutions)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def table(spec, f):
+        return torch.randn((spec.total_size, f), generator=gen,
+                           device=dev) * 0.1
+
+    lego = HashGridSpec(geometric_resolutions(16, 512, 24), 19, 3)
+    pts, _ = ray_ordered_points(dev, gen, budget=1 << 20)
+    out = {'hash_encode': (pts, table(lego, 4), table(lego, 1), lego, True,
+                           20, 'the lego step (affine, 24 LODs, F = 4, '
+                               'ld = 1)')}
+    ocfg = occ.OccupancyGridConfig()
+    u = torch.rand((ocfg.num_cells, 3), generator=gen, device=dev)
+    out['hash_encode_prune'] = (
+        occ.cell_centers_jittered(ocfg, u), table(lego, 4), None, lego,
+        False, 10, 'the flat prune (decoded table, no gradient)')
+    kodak = _kodak_spec()
+    h, w = KODAK_HW
+    out['hash_encode_image'] = (
+        torch.as_tensor(pixel_coords(h, w), device=dev), table(kodak, 1),
+        table(kodak, 1), kodak, True, 20,
+        "kodak's full-image step (affine 2D, F = 1, ld = 1)")
+    hgrid = HashGridSpec(geometric_resolutions(16, 2048, 16), 19, 3)
+    pts, _ = ray_ordered_points(dev, gen, n_rays=4096, steps=1024,
+                                budget=4096 * 1024)
+    out['hash_encode_hash'] = (pts, table(hgrid, 2), None, hgrid, True, 5,
+                               "HashGrid's dense march (F = 2)")
+    sdf = HashGridSpec(geometric_resolutions(8, 64, 5), 12, 3)
+    out['hash_encode_sdf'] = (
+        torch.rand((4096, 3), generator=gen, device=dev) * 2 - 1,
+        table(sdf, 4), None, sdf, True, 100,
+        'an SDF demo step (5 LODs, F = 4)')
+    return out
+
+
+def check_encode(name, coords, table, zt, spec, save, reps, use):
+    """Kernel E1 (through its launch helper) against its plain version on
+    one input: gidx bit-identical, w within an ulp, features and zbar
+    within 1e-6 of the largest value; both timed.  Returns a row of the
+    kernels line (launches filled in later)."""
+    import torch
+    from shacira_tpu_torch.ops import hashgrid
+    got = hashgrid._launch_encode(coords, table, spec, None, zt, save)
+    want = hashgrid.encode_plain(coords, table, spec, None, zt)
+    torch.cuda.synchronize()
+    err = float((got[0] - want[0]).abs().max())
+    rel = err / max(float(want[0].abs().max()), 1e-30)
+    ulps, gidx_equal = 0.0, True
+    if save:
+        if got[1] is not None:
+            rel = max(rel, float((got[1] - want[1]).abs().max())
+                      / max(float(want[1].abs().max()), 1e-30))
+        gidx_equal = bool(torch.equal(got[2], want[2]))
+        ulps = _ulps(got[3], want[3])
+    identical = all(torch.equal(g, w) for g, w in zip(got, want)
+                    if g is not None)
+    del got, want
+    ms = time_ms(lambda: hashgrid._launch_encode(
+        coords, table, spec, None, zt, save), reps)
+    plain_ms = time_ms(lambda: hashgrid.encode_plain(
+        coords, table, spec, None, zt), max(1, reps // 4))
+    n, lods, f = coords.shape[0], spec.num_lods, table.shape[1]
+    ld = 0 if zt is None else zt.shape[1]
+    b_ms = encode_bound(n, lods, spec.dim, f, ld, save)
+    log(f'  {name}: N={n} L={lods} dim={spec.dim} F={f} ld={ld} '
+        f'save={save} bit_identical={identical} max_rel_err={rel:.3e} '
+        f'gidx_equal={gidx_equal} w_max_ulps={ulps:g} kernel {ms:.4f} ms, '
+        f'plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms (bytes)')
+    if not (rel <= 1e-6 and gidx_equal and ulps <= 1.0):
+        raise AssertionError(f'{name}: kernel E1 disagrees with its plain '
+                             f'version')
+    return {'max_abs_err': err, 'max_rel_err': rel, 'max_ulps': ulps,
+            'bit_identical': identical, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': b_ms,
+            'bound_by': 'bytes', 'library_ms': None, 'use': use,
+            'source': 'shacira_tpu_torch/csrc/hash_encode.cu',
+            'replaces': 'none (the XLA gather of hash_encode, '
+                        'shacira_tpu/ops/hashgrid.py)'}
+
+
+def phase_encode_kernel(dev):
+    """Kernel E1 at every shape of ``encode_inputs``."""
+    import torch
+    rows = {}
+    inputs = encode_inputs(dev)
+    for name in list(inputs):
+        rows[name] = check_encode(name, *inputs.pop(name))
+        torch.cuda.empty_cache()
+    return rows
 
 
 def phase_kernels(dev):
@@ -1024,7 +1150,8 @@ AFTER_PRUNE = 4           # training steps past the prune
 
 
 LAUNCHED = ('scatter_add', 'segment_sum', 'paged_gather',
-            'paged_gather_occupancy', 'paged_scatter', 'voxel_crossings')
+            'paged_gather_occupancy', 'paged_scatter', 'voxel_crossings',
+            'hash_encode')
 
 
 def _launch_counts():
@@ -1125,6 +1252,10 @@ def phase_lego(dev, prune_every, paged: bool = False, fine_mode='deferred'):
         raise AssertionError('the prune left the occupancy unchanged')
     if not math.isfinite(metrics['psnr']):
         raise AssertionError('non-finite evaluation PSNR')
+    if not paged and in_prune_step['hash_encode'] != 2:
+        # E1: one forward of the step plus one in the prune
+        raise AssertionError(f'E1 launches in the prune step: '
+                             f'{in_prune_step}')
     if paged:
         # one forward of the step plus one in the prune; one per eval batch
         if in_prune_step['paged_gather'] != 2:
@@ -3626,6 +3757,7 @@ def main(argv=None) -> int:
         f'counting builds in parallel ({time.perf_counter() - t0:.1f} s)')
     log('phase kernels:')
     rows = phase_kernels(dev)
+    rows.update(phase_encode_kernel(dev))
     rows.update(phase_paged_kernels(dev))
     log('phase parity:')
     for march in PARITY_MARCHES:
@@ -3698,6 +3830,11 @@ def main(argv=None) -> int:
                ('scatter_add_ray_ordered', 'scatter_add', 'lego'),
                ('scatter_add_one_lod', 'scatter_add', 'lego'),
                ('segment_sum', 'segment_sum', 'lego'),
+               ('hash_encode', 'hash_encode', 'lego'),
+               ('hash_encode_prune', 'hash_encode', 'lego'),
+               ('hash_encode_image', 'hash_encode', 'image'),
+               ('hash_encode_hash', 'hash_encode', 'hash'),
+               ('hash_encode_sdf', 'hash_encode', 'sdf'),
                ('paged_gather', 'paged_gather', 'paged'),
                ('paged_gather_prune', 'paged_gather', 'paged'),
                ('paged_gather_occupancy', 'paged_gather_occupancy', 'kernel'),
@@ -3722,7 +3859,7 @@ def main(argv=None) -> int:
     counts = ('updates', 'atomics', 'distinct_per_tile',
               'occupancy_row_mismatches', 'valid_mismatches', 'max_ulps',
               'steps_walked', 'longest_walk', 'us_per_step', 'crossings',
-              'device_ms')
+              'device_ms', 'bit_identical')
     kernels = []
     for name, wrapper, path in path_of:
         row = rows[name]

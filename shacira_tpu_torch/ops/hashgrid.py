@@ -13,12 +13,22 @@ The uint32 hash is computed in int64 as ``(c * prime) & 0xFFFFFFFF`` (the
 product stays below 2^47), then XORed and masked, so indices are
 bit-identical to JAX's uint32 arithmetic.
 
-Both encodes are ``torch.autograd.Function``s whose backward scatters into
-the concatenated ``[total_size, width]`` table gradient with ONE launch of
-the scatter kernel (``ops/scatter.py``), every LOD's indices offset by its
-``lod_first_idx``.  Every encode's backward runs in the range
-``backward/encode``, on autograd's thread, so the profiler gives it the
-kernels it launches.
+Both encodes are ``torch.autograd.Function``s.  Their forward is
+:func:`encode_forward`: on the card ONE launch of kernel E1
+(``csrc/hash_encode.cu``) over every LOD computes cells, corner rows,
+weights, gathers and blends in registers and writes the features, plus
+the corner rows ``gidx`` and weights ``w`` ``[L, N, C]`` the backward
+reads when an input needs a gradient (features alone otherwise: prune,
+renders, validation).  E1 replaces no Pallas kernel: the JAX package's
+flat forward is a gather left to XLA.  On the CPU the forward is
+:func:`encode_plain`, the PyTorch version E1 is held to: E1 takes the
+orders of PyTorch's CUDA product and sum, so on the card its corner rows,
+weights and features equal :func:`encode_plain`'s bit for bit.  The
+backward scatters into the concatenated ``[total_size, width]`` table
+gradient with ONE launch of the scatter kernel (``ops/scatter.py``), every
+LOD's indices offset by its ``lod_first_idx``.  Every encode's backward
+runs in the range ``backward/encode``, on autograd's thread, so the
+profiler gives it the kernels it launches.
 
 The ``'paged'`` layout (``hash_layout='paged'``) places a hashed LOD's
 entries page by page: ``entry = page(cell) * E + fold_hash(xor_hash, E)``,
@@ -30,6 +40,7 @@ cannot be paged.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from dataclasses import dataclass
 from typing import Tuple
@@ -38,7 +49,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from shacira_tpu_torch.kernels.build import load
 from shacira_tpu_torch.ops.scatter import scatter_add
+from shacira_tpu_torch.utils import perf
 
 # XOR-hash primes of the reference kernels.
 PRIMES = (1, 2654435761, 805459861)
@@ -235,16 +248,150 @@ def _interp(table: torch.Tensor, gidx: torch.Tensor, w: torch.Tensor):
     return torch.sum(table[gidx.long()] * w[..., None], dim=1)
 
 
+def encode_plain(coords: torch.Tensor, table: torch.Tensor,
+                 spec: HashGridSpec, lods=None, zt=None):
+    """Plain PyTorch version of kernel E1 (:func:`encode_forward`): the
+    blend of ``table`` [T, F] and, when given, ``zt`` [T, ld] (the table
+    ``[table, zt]``, f32) at ``coords`` [N, dim] over ``lods`` (default:
+    every LOD).  Returns (feats [N, L, F], zbar [L, N, ld] or None, gidx
+    [L, N, C] int32, w [L, N, C] f32)."""
+    f = table.shape[1]
+    both = table.float() if zt is None else torch.cat(
+        [table.float(), zt.float()], dim=-1)
+    gidx, w = _all_corners(coords, spec, lods)
+    blend = [_interp(both, gidx[l], w[l]) for l in range(gidx.shape[0])]
+    feats = torch.stack([b[:, :f] for b in blend], dim=1)
+    zbar = None if zt is None else torch.stack([b[:, f:] for b in blend])
+    return feats, zbar, gidx, w
+
+
+# Per-LOD modes of kernel E1 (``csrc/hash_encode.cu``).
+LOD_DIRECT, LOD_XOR, LOD_PAGED = 0, 1, 2
+MAX_LODS = 64                 # the kernel's kMaxLods
+
+
+class _Lod(ctypes.Structure):
+    """``struct Lod`` of ``csrc/hash_encode.cu``: one LOD's parameters."""
+    _fields_ = [('res', ctypes.c_int32), ('first', ctypes.c_int32),
+                ('size', ctypes.c_int32), ('mode', ctypes.c_int32),
+                ('entries', ctypes.c_int32), ('hi', ctypes.c_float),
+                ('cell_max', ctypes.c_float)]
+
+
+@functools.lru_cache(maxsize=None)
+def lod_params(spec: HashGridSpec, lods=None):
+    """The ``struct Lod`` array kernel E1 takes for ``lods`` (default:
+    every LOD) in that order: resolution, first row in the concatenated
+    table, rows (a hashed LOD masks with ``size - 1``), mode
+    (``LOD_DIRECT`` / ``LOD_XOR`` / ``LOD_PAGED``), entries a page, and
+    the clamps of :func:`_cell_and_frac` in f32.  Built once per (spec,
+    lods); passed by value with each launch."""
+    lods = range(spec.num_lods) if lods is None else lods
+    if not 1 <= len(lods) <= MAX_LODS:
+        raise ValueError(f'kernel E1 takes 1 to {MAX_LODS} LODs, got '
+                         f'{len(lods)}')
+    out = (_Lod * len(lods))()
+    for k, lod in enumerate(lods):
+        res, cs = spec.resolutions[lod], spec.codebook_size
+        paged = spec.hash_layout == 'paged' and paged_params(
+            res, cs, spec.dim, spec.page_res)
+        if use_direct_index(res, cs, spec.dim):
+            mode, entries = LOD_DIRECT, 0
+        elif paged:
+            mode, entries = LOD_PAGED, paged[1]
+        else:
+            mode, entries = LOD_XOR, 0
+        out[k] = _Lod(res, spec.lod_first_idx[lod], spec.lod_sizes[lod],
+                      mode, entries, res - 1 - 1e-5, max(res - 2, 0))
+    return out
+
+
+_ENCODE_SIGNATURE = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as contiguous f32, aligned for the kernel's vector loads."""
+    t = t.float().contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _launch_encode(coords: torch.Tensor, table: torch.Tensor,
+                   spec: HashGridSpec, lods, zt, save: bool):
+    """Launch ``hash_encode_forward`` (``csrc/hash_encode.cu``) on the
+    current stream; the outputs of :func:`encode_plain`, ``zbar``, ``gidx``
+    and ``w`` None unless ``save``."""
+    fn = load('hash_encode').hash_encode_forward
+    if fn.argtypes is None:
+        fn.argtypes = _ENCODE_SIGNATURE
+        fn.restype = ctypes.c_int
+    params = lod_params(spec, lods)
+    coords, table = coords.float().contiguous(), _f32(table)
+    zt = None if zt is None else _f32(zt)
+    n, f = coords.shape[0], table.shape[1]
+    ld = 0 if zt is None else zt.shape[1]
+    num, c = len(params), 2 ** spec.dim
+    dev = table.device
+    feats = torch.empty((n, num, f), dtype=torch.float32, device=dev)
+    zbar = gidx = w = None
+    if save:
+        gidx = torch.empty((num, n, c), dtype=torch.int32, device=dev)
+        w = torch.empty((num, n, c), dtype=torch.float32, device=dev)
+        if ld:
+            zbar = torch.empty((num, n, ld), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(coords.data_ptr(), table.data_ptr(), f, ptr(zt), ld,
+             ctypes.addressof(params), num, spec.page_res, n, spec.dim,
+             feats.data_ptr(), ptr(zbar), ptr(gidx), ptr(w), stream)
+    if err != 0:
+        raise RuntimeError(f'hash_encode_forward launch failed: CUDA error '
+                           f'{err}')
+    return feats, zbar, gidx, w
+
+
+def encode_forward(coords: torch.Tensor, table: torch.Tensor,
+                   spec: HashGridSpec, lods=None, zt=None,
+                   save: bool = True):
+    """The flat encode's forward: ``table`` [T, F] blended at ``coords``
+    [N, dim] over ``lods`` (default: every LOD) as features [N, L, F] and,
+    when given, ``zt`` [T, ld] as ``zbar`` [L, N, ld], with the corner rows
+    ``gidx`` and weights ``w`` [L, N, C] the backward reads.
+
+    CPU tensors take :func:`encode_plain`; CUDA tensors launch kernel E1
+    once for all LODs (counted as ``launches/hash_encode``), writing
+    ``zbar``, ``gidx`` and ``w`` only when ``save`` (None otherwise)."""
+    if coords.dim() != 2 or coords.shape[1] != spec.dim or table.dim() != 2:
+        raise ValueError(f'coords [N, {spec.dim}] and table [T, F] expected, '
+                         f'got {tuple(coords.shape)} and '
+                         f'{tuple(table.shape)}')
+    if coords.device != table.device:
+        raise ValueError(f'coords on {coords.device}, table on '
+                         f'{table.device}')
+    if table.device.type == 'cpu':
+        return encode_plain(coords, table, spec, lods, zt)
+    if table.device.type != 'cuda':
+        raise RuntimeError(f'hash encode: unsupported device {table.device}')
+    out = _launch_encode(coords, table, spec, lods, zt, save)
+    perf.count('launches/hash_encode', 1)
+    return out
+
+
 class _HashEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, coords, codebook, spec):
-        gidx, w = _all_corners(coords, spec)
-        table = codebook.float()
-        feats = [_interp(table, gidx[l], w[l]) for l in range(spec.num_lods)]
+        feats, _, gidx, w = encode_forward(coords, codebook, spec,
+                                           save=ctx.needs_input_grad[1])
         ctx.spec = spec
         ctx.cb_dtype = codebook.dtype
         ctx.save_for_backward(gidx, w)
-        return torch.stack(feats, dim=1).to(codebook.dtype)
+        return feats.to(codebook.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -266,25 +413,22 @@ def hash_encode(coords: torch.Tensor, codebook: torch.Tensor,
                 spec: HashGridSpec) -> torch.Tensor:
     """Multi-LOD hash-grid interpolation ``[N, dim] -> [N, L, F]``.
     Gradients flow to ``codebook`` only."""
+    if not torch.is_grad_enabled():     # no backward: save nothing for it
+        codebook = codebook.detach()
     return _HashEncode.apply(coords, codebook, spec)
 
 
 class _HashEncodeAffine(torch.autograd.Function):
     @staticmethod
     def forward(ctx, coords, z, scale, shift, spec, lods):
-        ld = z.shape[-1]
-        decoded = (z @ scale + shift).float()
-        both = torch.cat([decoded, z.float()], dim=-1)    # [T, F + ld]
-        gidx, w = _all_corners(coords, spec, lods)
-        feats, zbar = [], []
-        for l in range(gidx.shape[0]):
-            blend = _interp(both, gidx[l], w[l])          # [N, F + ld]
-            feats.append(blend[:, :-ld])
-            zbar.append(blend[:, -ld:])
+        decoded = z @ scale + shift                       # [T, F]
+        feats, zbar, gidx, w = encode_forward(
+            coords, decoded, spec, lods, z,
+            save=any(ctx.needs_input_grad[1:4]))
         ctx.spec = spec
         ctx.dtypes = (z.dtype, scale.dtype, shift.dtype)
-        ctx.save_for_backward(gidx, w, torch.stack(zbar), scale)
-        return torch.stack(feats, dim=1)
+        ctx.save_for_backward(gidx, w, zbar, scale)
+        return feats
 
     @staticmethod
     def backward(ctx, g):
@@ -316,6 +460,8 @@ def hash_encode_affine(coords: torch.Tensor, z: torch.Tensor,
     sum (w z) (x) g``, ``grad_shift = sum w g``.
     """
     lods = None if lods is None else tuple(lods)
+    if not torch.is_grad_enabled():     # no backward: save nothing for it
+        z, scale, shift = z.detach(), scale.detach(), shift.detach()
     return _HashEncodeAffine.apply(coords, z, scale, shift, spec, lods)
 
 
