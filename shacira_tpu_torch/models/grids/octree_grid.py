@@ -11,6 +11,14 @@ the device it is asked for and stays fixed; only the feature tables are
 parameters.  Every LOD's corner rows are gathered with ONE
 :func:`ops.scatter.gather_rows`, whose backward is one launch of kernel B1
 over the tables of all LODs.
+
+Spans (``record_function``, inside the field's ``field/encode``):
+``field/octree_query`` (cells, morton search, trinkets and weights),
+``field/gather`` (the corner rows' gather) and, for VQAD,
+``field/codebook_mix`` (softmax, argmax, one-hot and the dictionary
+product).  While a profiler records a training step, the counter
+``field/corner_rows`` (rows gathered) adds host numbers
+(``utils/perf.py``).
 """
 from __future__ import annotations
 
@@ -19,9 +27,11 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from shacira_tpu_torch.ops import coding, spc
 from shacira_tpu_torch.ops.scatter import gather_rows
+from shacira_tpu_torch.utils import perf
 
 
 @dataclass(frozen=True)
@@ -143,8 +153,19 @@ def _blend(cf, w, valid):
 
 def _corners(cfg: OctreeGridConfig, structure, coords):
     tables = _as_tables(structure)
-    return [_lod_corners(tables['codes'][i], tables['trinkets'][i], coords,
-                         lod) for i, lod in enumerate(cfg.active_lods)]
+    with record_function('field/octree_query'):
+        return [_lod_corners(tables['codes'][i], tables['trinkets'][i],
+                             coords, lod)
+                for i, lod in enumerate(cfg.active_lods)]
+
+
+def _gather(tables, parts):
+    """Each LOD's corner rows of its table, in one :func:`gather_rows`."""
+    idxs = [p[0] for p in parts]
+    with record_function('field/gather'):
+        if perf.tracing() and torch.is_grad_enabled():
+            perf.count('field/corner_rows', sum(i.numel() for i in idxs))
+        return gather_rows(tables, idxs)
 
 
 def _multiscale(feats, cfg, lead):
@@ -161,7 +182,7 @@ def interpolate(params: dict, cfg: OctreeGridConfig, structure,
     lead = coords.shape[:-1]
     c = coords.reshape(-1, 3)
     parts = _corners(cfg, structure, c)
-    cfs = gather_rows(params['features'], [p[0] for p in parts])
+    cfs = _gather(params['features'], parts)
     return _multiscale([_blend(cf, w, v) for cf, (_, w, v)
                         in zip(cfs, parts)], cfg, lead)
 
@@ -204,15 +225,16 @@ def _codebook_lookup(l: torch.Tensor, dictionary: torch.Tensor,
     """Dictionary entries of gathered logits [..., D]: training mixes with
     the straight-through softmax ``y_soft + (hard - y_soft).detach()``;
     eval looks the argmax up (both argmaxes take the first maximum)."""
-    if training:
-        y_soft = torch.softmax(l, dim=-1)
-        # the one-hot of the argmax, built in f32 (F.one_hot's int64 would
-        # double the largest tensor of the step)
-        hard = torch.zeros_like(y_soft).scatter_(
-            -1, torch.argmax(y_soft, dim=-1, keepdim=True), 1.0)
-        keys = y_soft + (hard - y_soft).detach()
-        return torch.einsum('...d,df->...f', keys, dictionary)
-    return dictionary[torch.argmax(l, dim=-1)]
+    with record_function('field/codebook_mix'):
+        if training:
+            y_soft = torch.softmax(l, dim=-1)
+            # the one-hot of the argmax, built in f32 (F.one_hot's int64
+            # would double the largest tensor of the step)
+            hard = torch.zeros_like(y_soft).scatter_(
+                -1, torch.argmax(y_soft, dim=-1, keepdim=True), 1.0)
+            keys = y_soft + (hard - y_soft).detach()
+            return torch.einsum('...d,df->...f', keys, dictionary)
+        return dictionary[torch.argmax(l, dim=-1)]
 
 
 def codebook_interpolate(params: dict, cfg: CodebookOctreeGridConfig,
@@ -221,7 +243,7 @@ def codebook_interpolate(params: dict, cfg: CodebookOctreeGridConfig,
     lead = coords.shape[:-1]
     c = coords.reshape(-1, 3)
     parts = _corners(cfg, structure, c)
-    logits = gather_rows(params['logits'], [p[0] for p in parts])
+    logits = _gather(params['logits'], parts)
     feats = []
     for l, dictionary, (_, w, v) in zip(logits, params['dictionary'], parts):
         feats.append(_blend(_codebook_lookup(l, dictionary, training), w, v))

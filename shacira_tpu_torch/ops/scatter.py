@@ -18,7 +18,8 @@ run through it:
 :func:`gather_rows` is the feature-table gather of the alternative grid
 backbones (NGLOD corner features, VQAD corner logits, triplanar plane
 texels): its backward is the same scatter, one launch over the tables of
-every LOD (and plane) in one row space with offsets.  The JAX package does
+every LOD (and plane) in one row space with offsets, inside the range
+``backward/encode`` on autograd's thread.  The JAX package does
 that scatter in XLA outside any Pallas kernel.
 
 Dispatch: a CPU tensor takes the plain PyTorch version beside the kernel;
@@ -38,6 +39,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.profiler import record_function
 
 from shacira_tpu_torch.kernels.build import load
 from shacira_tpu_torch.utils import perf
@@ -248,19 +250,20 @@ class _GatherRows(torch.autograd.Function):
         if not live:
             return (None,) * (1 + 2 * len(rows))
         width = grads[live[0]].shape[-1]
-        flat_idx = [(idxs[k].reshape(-1).long() + offsets[k]).to(torch.int32)
-                    for k in live]
-        vals = [grads[k].float().reshape(-1, width) for k in live]
-        if len(live) > 1:
-            flat_idx, vals = torch.cat(flat_idx), torch.cat(vals)
-        else:
-            flat_idx, vals = flat_idx[0], vals[0]
-        table = scatter_add(flat_idx, vals, sum(rows))
-        del flat_idx, vals
-        out = [None] * len(rows)
-        for k, part in enumerate(torch.split(table, rows)):
-            if k in live:
-                out[k] = part.to(ctx.dtypes[k])
+        with record_function('backward/encode'):
+            flat_idx = [(idxs[k].reshape(-1).long() + offsets[k]
+                         ).to(torch.int32) for k in live]
+            vals = [grads[k].float().reshape(-1, width) for k in live]
+            if len(live) > 1:
+                flat_idx, vals = torch.cat(flat_idx), torch.cat(vals)
+            else:
+                flat_idx, vals = flat_idx[0], vals[0]
+            table = scatter_add(flat_idx, vals, sum(rows))
+            del flat_idx, vals
+            out = [None] * len(rows)
+            for k, part in enumerate(torch.split(table, rows)):
+                if k in live:
+                    out[k] = part.to(ctx.dtypes[k])
         return (None, *out, *([None] * len(rows)))
 
 

@@ -61,7 +61,9 @@ JAX tracer.
 While a profiler records, a training step's flat compaction counts its
 live samples, those kept under the budget and the budget's slots
 (``trace/live_samples``, ``trace/kept_samples``, ``trace/slots`` in
-``utils/perf.py``); renders, which take no gradient, count nothing.
+``utils/perf.py``); the dense trace (no budget) keeps every live sample
+and has a slot for every march sample.  Renders, which take no gradient,
+count nothing.
 """
 from __future__ import annotations
 
@@ -953,17 +955,23 @@ def trace(field_fn, occ_state: dict, occ_cfg: occ.OccupancyGridConfig,
     else:
         dirs = torch.broadcast_to(rays.dirs[:, None, :], samples.shape)
         color, density, extras = _eval_field(field_fn, samples, dirs)
-        color = torch.where(mask[..., None], color, 0.0)
-        density = torch.where(mask, density[..., 0], 0.0)
-        rgb, alpha, depth = volume_integrate(color, density, m['deltas'],
-                                             m['depth'], mask)
-        out = {'rgb': rgb, 'alpha': alpha, 'depth': depth}
-        if extras:
-            w = integration_weights(density, m['deltas'], mask)
-            for name, v in extras.items():
-                out[name] = torch.sum(
-                    w[..., None] * torch.where(mask[..., None], v, 0.0),
-                    dim=-2)
+        with record_function('trace/integrate'):
+            if perf.tracing() and torch.is_grad_enabled():
+                live = mask.sum()
+                perf.count('trace/live_samples', live)
+                perf.count('trace/kept_samples', live)
+                perf.count('trace/slots', mask.numel())
+            color = torch.where(mask[..., None], color, 0.0)
+            density = torch.where(mask, density[..., 0], 0.0)
+            rgb, alpha, depth = volume_integrate(color, density, m['deltas'],
+                                                 m['depth'], mask)
+            out = {'rgb': rgb, 'alpha': alpha, 'depth': depth}
+            if extras:
+                w = integration_weights(density, m['deltas'], mask)
+                for name, v in extras.items():
+                    out[name] = torch.sum(
+                        w[..., None] * torch.where(mask[..., None], v, 0.0),
+                        dim=-2)
     return _composite(out, cfg)
 
 

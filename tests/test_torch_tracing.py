@@ -1,8 +1,10 @@
 """The port's spans and counters where the work happens: the flat
 compaction's sample counters (only a training step's, only while a
 profiler records), the encode backward's range on autograd's side, the
-trainer's prune, presample and log ranges, and the operator's export of
-the counters beside the trace.  CPU, tiny sizes, no JAX."""
+trainer's prune, presample and log ranges, the octree grids' query,
+gather and codebook-mix ranges and row counters, the dense trace's
+integration range, and the operator's export of the counters beside the
+trace.  CPU, tiny sizes, no JAX."""
 import json
 import math
 
@@ -15,6 +17,7 @@ from shacira_tpu_torch.core.rays import make_rays  # noqa: E402
 from shacira_tpu_torch.datasets.nerf_synthetic import (  # noqa: E402
     MultiviewData, pinhole_rays)
 from shacira_tpu_torch.models.grids import latent_grid as tlg  # noqa: E402
+from shacira_tpu_torch.models.grids import octree_grid as tog  # noqa: E402
 from shacira_tpu_torch.models.nefs import nerf as tnerf  # noqa: E402
 from shacira_tpu_torch.tracers import rf_tracer as trt  # noqa: E402
 from shacira_tpu_torch.trainers import multiview_trainer as tmt  # noqa: E402
@@ -67,9 +70,9 @@ def _trainer(**cfg):
         num_rays=RAYS, seed=0, device='cpu')
 
 
-def _batch(tr):
+def _batch(tr, use_sga: bool = True):
     ro, rd, gt = (torch.as_tensor(a[0]) for a in tr._presample(1))
-    return ro, rd, gt, tr.draw_step(use_sga=True)
+    return ro, rd, gt, tr.draw_step(use_sga=use_sga)
 
 
 def _live(tr, ro, rd, draws) -> int:
@@ -155,3 +158,65 @@ def test_profile_writes_the_counters_beside_the_trace(tmp_path):
     assert 0 < counters['trace/kept_samples'] <= BUDGET
     assert counters['trace/live_samples'] >= counters['trace/kept_samples']
     assert 'launches/elsewhere' not in counters
+
+
+def _octree_trainer(kind: str):
+    """NGLOD or VQAD on the dense 'ray' trace (no budget)."""
+    base = dict(feature_dim=5, base_lod=2, num_lods=2, feature_std=0.01)
+    grid = (tog.CodebookOctreeGridConfig(codebook_bitwidth=4, **base)
+            if kind == 'codebook' else tog.OctreeGridConfig(**base))
+    model = tnerf.NeuralRadianceFieldConfig(
+        grid=grid, hidden_dim=16, view_embedder='positional', blas_level=3)
+    return tmt.MultiviewTrainer(
+        tmt.MultiviewTrainerConfig(epochs=20, prune_every=-1, chunk_size=4,
+                                   valid_views=1),
+        model, trt.RFTracerConfig(num_steps=STEPS, max_samples=0), _views(),
+        num_rays=RAYS, seed=0, device='cpu')
+
+
+OCTREE_KW = dict(ent_lambda=0.0, temperature=1.0, lr_ldec=0.0,
+                 use_sga=False)
+
+
+@pytest.mark.parametrize('kind', ['codebook', 'octree'])
+def test_an_octree_step_names_its_query_gather_and_mix(kind):
+    """The octree grids' spans inside the encode, their counters (every
+    sample of the dense trace, 2 LODs, 8 corners), the gather's backward
+    on autograd's side and the dense trace's integration and sample
+    counters (every live sample kept, a slot for every sample)."""
+    perf.reset_counts()
+    tr = _octree_trainer(kind)
+    batch = _batch(tr, use_sga=False)
+    tr.step(*batch, **OCTREE_KW)                   # unprofiled: no counts
+    assert perf._device == {}
+    assert all(perf.counted(n) == 0.0
+               for n in COUNTERS + ('field/corner_rows',))
+    with torch.profiler.profile() as prof:
+        tr.step(*batch, **OCTREE_KW)
+    live = _live(tr, batch[0], batch[1], batch[3])
+    assert 0 < live < RAYS * STEPS
+    assert perf.counted('trace/live_samples') == live
+    assert perf.counted('trace/kept_samples') == live
+    assert perf.counted('trace/slots') == RAYS * STEPS
+    assert perf.counted('field/corner_rows') == RAYS * STEPS * 2 * 8
+    names = [e.name for e in prof.events()]
+    assert names.count('field/octree_query') == 1
+    assert names.count('field/gather') == 1
+    assert names.count('field/codebook_mix') == (2 if kind == 'codebook'
+                                                 else 0)
+    assert names.count('trace/integrate') == 1
+    encode = [e for e in prof.events() if e.name == 'field/encode']
+    for span in ('field/octree_query', 'field/gather'):
+        assert _below(encode[0], span), span
+    ranges = [e for e in prof.events() if e.name == 'backward/encode']
+    assert len(ranges) == 1 and _below(ranges[0], 'aten::index_put_')
+    perf.reset_counts()
+
+
+def test_an_octree_render_counts_nothing():
+    perf.reset_counts()
+    tr = _octree_trainer('codebook')
+    with torch.profiler.profile():
+        tr.render_view(0)
+    assert all(perf.counted(n) == 0.0
+               for n in COUNTERS + ('field/corner_rows',))
