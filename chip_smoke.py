@@ -132,6 +132,10 @@ Phases, each of which must pass (exit code 1 otherwise):
                of the dense octree of LODs 5-8; the triplanar texels of
                1,048,576 samples, F = 4, into 264,012 rows; the HashGrid
                backward, 16 LODs, F = 2), checked and timed as in phase 2;
+               kernel R1, the gather of the same three backbones' rows in
+               their forward (int32 corner rows of F = 16 and 5, int64
+               texel rows of F = 4), bit-identical to t[i.long()] in one
+               launch, timed beside it with its bound;
                then the app with configs/nerf_octree.yaml,
                nerf_codebook.yaml, nerf_triplanar.yaml (with --max-samples
                1048576, its one cut) and nerf_hash.yaml at full width on
@@ -141,8 +145,8 @@ Phases, each of which must pass (exit code 1 otherwise):
                1e-4 dB); the dense octree built once for NGLOD and VQAD,
                its build time printed; each run's step time, device busy
                time, idle share, stream syncs a step, peak memory and size
-               report; B1 every step on every path, V1 on the triplanar
-               path;
+               report; B1 every step on every path, R1 on the octree,
+               codebook and triplanar paths, V1 on the triplanar path;
 21. sdf     -- the SDF demo (``shacira_tpu_torch.apps.sdf_demo``, the
                counterpart of tools/run_sdf_demo.py) at its full width:
                B1 on a real step's NeuralSDF hash backward (163,840 rows of
@@ -1151,7 +1155,7 @@ AFTER_PRUNE = 4           # training steps past the prune
 
 LAUNCHED = ('scatter_add', 'segment_sum', 'paged_gather',
             'paged_gather_occupancy', 'paged_scatter', 'voxel_crossings',
-            'hash_encode')
+            'hash_encode', 'gather_rows')
 
 
 def _launch_counts():
@@ -2744,6 +2748,106 @@ def phase_backbone_kernels(dev):
     return rows
 
 
+def gather_inputs(dev):
+    """R1's inputs at the backbone steps' shapes, name -> (tables, idxs,
+    use), the corner rows of samples along rays in (ray, depth) order
+    (``ray_ordered_points``):
+
+    * ``gather_rows_codebook``: VQAD's corner logits, the dense 'ray'
+      march of 4096 x 1024 samples, 4 LODs of [N, 8] int32 rows into
+      16-wide f32 tables of the dense octree of LODs 5-8 (19,431,844
+      corners);
+    * ``gather_rows_octree``: NGLOD's corner features, the same rows into
+      5-wide tables;
+    * ``gather_rows_triplanar``: the triplanar texels of 1,048,576
+      compacted samples, 12 planes of [N, 4] int64 rows into 4-wide tables
+      of 264,012 texels."""
+    import torch
+    from shacira_tpu_torch.models.grids import octree_grid as og
+    from shacira_tpu_torch.models.grids import triplanar_grid as tg
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {}
+    pts, _ = ray_ordered_points(dev, gen, n_rays=4096, steps=1024,
+                                budget=4096 * 1024)
+    cfg = og.OctreeGridConfig(feature_dim=5, base_lod=5, num_lods=4)
+    st = og.OctreeStructure.make_dense(cfg, device=dev)
+    idxs = [ci for ci, _, _ in og._corners(cfg, st, pts)]
+    del pts
+    use = ('forward of the gather {} (JAX: jnp.take, left to XLA), '
+           'shacira_tpu/models/grids/octree_grid.py:{}')
+    for name, f, what, line in (
+            ('gather_rows_codebook', 16, 'of VQAD\'s corner logits', 196),
+            ('gather_rows_octree', 5, 'of NGLOD\'s corner features', 152)):
+        tables = [torch.randn((st.num_corners[lod], f), generator=gen,
+                              device=dev) for lod in cfg.active_lods]
+        out[name] = (tables, idxs, use.format(what, line))
+    pts, _ = ray_ordered_points(dev, gen, n_rays=4096, steps=256,
+                                budget=1 << 20)
+    tcfg = tg.TriplanarGridConfig(feature_dim=4, base_lod=5, num_lods=4)
+    tables, idxs = [], []
+    for lod in tcfg.active_lods:
+        s = 2 ** lod + 1
+        for _, axes in tg.PLANES:
+            idxs.append(tg._plane_texels(s, pts[:, list(axes)])[0])
+            tables.append(torch.randn((s * s, 4), generator=gen, device=dev))
+    out['gather_rows_triplanar'] = (
+        tables, idxs, 'forward of the gather of the triplanar texels (JAX: '
+        'the plane indexing, left to XLA), '
+        'shacira_tpu/models/grids/triplanar_grid.py:61')
+    return out
+
+
+def gather_bound_ms(tables, idxs) -> float:
+    """Least time of a row gather: every gathered row written once and its
+    index read once, at 3.35 TB/s (the table's reads left out, as
+    ``perfbench/harness/vqad.py::gather_bound_s`` counts them)."""
+    row = tables[0].shape[1] * tables[0].element_size()
+    byts = sum(i.numel() * (row + i.element_size()) for i in idxs)
+    return byts / HBM_BYTES_PER_S * 1e3
+
+
+def check_gather(name, tables, idxs, use, reps):
+    """Kernel R1 (through its launch helper) against ``t[i.long()]`` on
+    one input, bit for bit; both timed.  Returns a row of the kernels
+    line (launches filled in later)."""
+    import torch
+    from shacira_tpu_torch.ops import scatter
+    got, launches = scatter._launch_gather(tables, idxs)
+    want = scatter.gather_rows_plain(tables, idxs)
+    torch.cuda.synchronize()
+    identical = all(torch.equal(g, w) for g, w in zip(got, want))
+    del got, want
+    ms = time_ms(lambda: scatter._launch_gather(tables, idxs), reps)
+    plain_ms = time_ms(lambda: scatter.gather_rows_plain(tables, idxs),
+                       reps)
+    b_ms = gather_bound_ms(tables, idxs)
+    rows = sum(i.numel() for i in idxs)
+    log(f'  {name}: tables={len(tables)} rows={rows} '
+        f'F={tables[0].shape[1]} idx={idxs[0].dtype} launches={launches} '
+        f'bit_identical={identical} kernel {ms:.4f} ms, plain {plain_ms:.4f} '
+        f'ms, bound {b_ms:.4f} ms (bytes), {100 * b_ms / ms:.2f} % of it')
+    if not identical or launches != 1:
+        raise AssertionError(f'{name}: kernel R1 is not t[i.long()] in one '
+                             f'launch')
+    return {'max_abs_err': 0.0, 'max_rel_err': 0.0, 'bit_identical': True,
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
+            'bound_by': 'bytes', 'library_ms': None, 'use': use,
+            'source': 'shacira_tpu_torch/csrc/scatter.cu',
+            'replaces': 'none (the XLA gather of jnp.take)'}
+
+
+def phase_gather_kernels(dev):
+    """Kernel R1 at every shape of ``gather_inputs``."""
+    import torch
+    rows = {}
+    inputs = gather_inputs(dev)
+    for name in list(inputs):
+        rows[name] = check_gather(name, *inputs.pop(name), reps=5)
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _drive_backbone(dev, name, argv, data, n_steps):
     """The app's ``main`` on ``argv`` (training across the prunes), then
     ``--resume true --valid-only``, whose PSNR must equal the trained
@@ -2858,9 +2962,9 @@ def _drive_backbone(dev, name, argv, data, n_steps):
 
 
 def phase_backbones(dev, rows) -> dict:
-    """B1 at the backbone shapes (its rows added to ``rows``), then
-    ``apps/train_nerf.main`` with each of ``BACKBONE_RUNS`` at the YAML's
-    full width on the Blender-format scene of
+    """B1 and R1 at the backbone shapes (their rows added to ``rows``),
+    then ``apps/train_nerf.main`` with each of ``BACKBONE_RUNS`` at the
+    YAML's full width on the Blender-format scene of
     ``tools/make_synthetic_data.write_nerf_scene(**BACKBONE_SCENE)``; the
     dense octree of LODs 5-8 built once for NGLOD and VQAD.  Returns the
     launches of each path."""
@@ -2874,6 +2978,8 @@ def phase_backbones(dev, rows) -> dict:
     launches = {}
     try:
         rows.update(phase_backbone_kernels(dev))
+        log('phase gather_kernels:')
+        rows.update(phase_gather_kernels(dev))
         log(f'  structure builds (s): {json.dumps(seconds)}')
         with tempfile.TemporaryDirectory() as tmp:
             scene = os.path.join(tmp, 'scene')
@@ -3854,6 +3960,9 @@ def main(argv=None) -> int:
                ('scatter_add_triplanar', 'scatter_add', 'triplanar'),
                ('scatter_add_hash', 'scatter_add', 'hash'),
                ('scatter_add_sdf', 'scatter_add', 'sdf'),
+               ('gather_rows_codebook', 'gather_rows', 'codebook'),
+               ('gather_rows_octree', 'gather_rows', 'octree'),
+               ('gather_rows_triplanar', 'gather_rows', 'triplanar'),
                ('segment_sum_extras', 'segment_sum', 'viewer_extras'),
                ('segment_sum_extras_frame', 'segment_sum', 'viewer_extras'))
     counts = ('updates', 'atomics', 'distinct_per_tile',
@@ -3895,6 +4004,10 @@ def main(argv=None) -> int:
                  'sdf'):
         if launches[path]['scatter_add'] <= 0:
             missing.append(f'scatter_add ({path} path)')
+    # and R1 in their forward
+    for path in ('octree', 'codebook', 'triplanar', 'octree_rtmv'):
+        if launches[path]['gather_rows'] <= 0:
+            missing.append(f'gather_rows ({path} path)')
     if launches['triplanar']['voxel_crossings'] <= 0:
         missing.append('voxel_crossings (triplanar path)')
     # the viewer's training steps (B1(a), B1(b)) and its frames' sums

@@ -1,4 +1,5 @@
-// Row scatter-add for Hopper: out[idx[n], :] += vals[n, :].
+// Row scatter-add for Hopper: out[idx[n], :] += vals[n, :] (kernel B1),
+// and the row gather out[n, :] = table[idx[n], :] (kernel R1, below).
 //
 // Replaces shacira_tpu/ops/pallas_scatter.py::_scatter_kernel, the TPU's
 // one-hot MXU matmul scatter.  The TPU factored the scatter into matmuls
@@ -79,6 +80,7 @@
 // cudaGetLastError() (0 on success).
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -343,6 +345,126 @@ int launch(const void* idx, const void* vals, void* out, long long n, int f,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Kernel R1: the row gather of ops/scatter.py::gather_rows' forward,
+// out_k[r, :] = table_k[idx_k[r], :] for every table k, in one launch.
+//
+// It replaces no Pallas kernel: the JAX package gathers the corner rows
+// with jnp.take (shacira_tpu/models/grids/octree_grid.py:152, :196; the
+// triplanar texels likewise) and leaves them to XLA.  The port ran
+// t[i.long()] a table: an int32 -> int64 copy of the indices, then
+// PyTorch's vectorized_gather_kernel, which launches one block of 32
+// threads for each row (4 of them live at 64-byte rows) -- 33.5 M blocks
+// a LOD at VQAD's step -- so the card holds a few rows in flight a
+// multiprocessor: 20.2 ms a LOD, on random and on sequential rows alike
+// (times here on an H100 80GB HBM3 at 700 W).
+//
+// Bound on an H100 (3.35 TB/s): the gathered rows written once and their
+// indices read once; the table's reads are left out, since samples that
+// follow each other along a ray share most corners and find them in L2.
+// VQAD's step: 134,217,728 rows of 16 f32 and their int32 indices ->
+// 9.13 GB -> >= 2.72 ms.  The stores set the time: writing the same
+// outputs alone (fill_) takes 2.62 ms, this kernel 3.43 ms, and 3.20 ms
+// with its table loads taken out.
+//
+// Design: a copy of rows of bytes in the widest vector (16, 8, 4, 2 or 1
+// bytes) that divides the row and the address of every table and output,
+// so a row is w vectors (w = 4 at F = 16 f32, 1 at F = 4, 5 scalars at
+// F = 5).  A block is w x (256 / w) threads: thread (x, y) copies vector x
+// of rows y, y + R, ... (kGatherUnroll of them, R = 256 / w), all loads of
+// a thread issued before its stores.  Consecutive threads hold consecutive
+// vectors of consecutive rows, so each store instruction of a warp writes
+// 32 contiguous vectors (at F = 16, 8 whole rows, 512 bytes).  Indices and
+// rows are read through the read-only path; the rows are written
+// evict-first (st.global.cs): 8.6 GB of output a step is 170x the 50 MB
+// L2, and cached stores would evict the table rows that the next samples
+// of a ray read again (3.50 ms with them).  Two rows a thread time the
+// same as four; eight lose a quarter.  The blocks of each table follow
+// those of the one before it, so one launch covers every table, each
+// writing its own output tensor.  Row offsets are 64-bit: one LOD's
+// output at VQAD's step holds 537 M floats.
+//
+// The output equals t[i.long()] bit for bit (a copy).  A negative index
+// counts from the table's end, as in PyTorch; an index outside [-rows,
+// rows) gives a row of zeros where PyTorch raises.  Indices come as int32
+// or int64, one template instance each, read where they lie.
+constexpr int kGatherThreads = 256;
+constexpr int kGatherUnroll = 4;      // rows a thread copies, loads first
+constexpr int kMaxGatherTables = 64;
+
+// One table of a launch, as ops/scatter.py packs it (ctypes _GatherTable).
+struct GatherTable {
+  const void* table;        // [rows, row bytes]
+  const void* idx;          // [n] int32 or int64
+  void* out;                // [n, row bytes]
+  long long rows;
+  long long n;
+  long long first_block;    // the table's first block of the launch
+};
+
+struct GatherTables {
+  GatherTable t[kMaxGatherTables];
+  int count;
+};
+
+template <typename V, typename I>
+__global__ void __launch_bounds__(kGatherThreads)
+gather_rows_kernel(const GatherTables p, int w) {
+  int k = 0;                                    // the block's table
+  while (k + 1 < p.count && p.t[k + 1].first_block <= (long long)blockIdx.x)
+    ++k;
+  const V* __restrict__ table = static_cast<const V*>(p.t[k].table);
+  const I* __restrict__ idx = static_cast<const I*>(p.t[k].idx);
+  V* __restrict__ out = static_cast<V*>(p.t[k].out);
+  const int64_t rows = p.t[k].rows, n = p.t[k].n;
+  const int64_t r0 = ((int64_t)blockIdx.x - p.t[k].first_block) *
+                         blockDim.y * kGatherUnroll + threadIdx.y;
+  int64_t src[kGatherUnroll];    // the table row of each row, -1: zeros
+#pragma unroll
+  for (int u = 0; u < kGatherUnroll; ++u) {
+    const int64_t r = r0 + (int64_t)u * blockDim.y;
+    int64_t i = r < n ? (int64_t)__ldg(idx + r) : -1;
+    if (r < n && i < 0) i += rows;
+    src[u] = i < rows ? i : -1;
+  }
+  for (int c = threadIdx.x; c < w; c += blockDim.x) {
+    V v[kGatherUnroll];
+#pragma unroll
+    for (int u = 0; u < kGatherUnroll; ++u) {
+      v[u] = V{};
+      if (src[u] >= 0) v[u] = __ldg(table + src[u] * w + c);
+    }
+#pragma unroll
+    for (int u = 0; u < kGatherUnroll; ++u) {
+      const int64_t r = r0 + (int64_t)u * blockDim.y;
+      if (r < n) __stcs(out + r * w + c, v[u]);
+    }
+  }
+}
+
+template <typename V>
+int launch_gather(GatherTables& p, long long row_bytes, bool idx64,
+                  cudaStream_t stream) {
+  const int w = (int)(row_bytes / (long long)sizeof(V));
+  const int bx = w < kGatherThreads ? w : kGatherThreads;
+  const int by = kGatherThreads / bx;
+  long long blocks = 0;
+  for (int k = 0; k < p.count; ++k) {
+    p.t[k].first_block = blocks;
+    blocks += (p.t[k].n + (long long)by * kGatherUnroll - 1) /
+              ((long long)by * kGatherUnroll);
+  }
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 block(bx, by);
+  if (idx64)
+    gather_rows_kernel<V, long long>
+        <<<(unsigned)blocks, block, 0, stream>>>(p, w);
+  else
+    gather_rows_kernel<V, int><<<(unsigned)blocks, block, 0, stream>>>(p, w);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int scatter_add_rows(const void* idx, const void* vals, void* out,
@@ -366,6 +488,32 @@ extern "C" int scatter_add_rows(const void* idx, const void* vals, void* out,
     case 16: return launch<16>(idx, vals, out, n, f, t, chunk, s);
     default: return launch<0>(idx, vals, out, n, f, t, chunk, s);
   }
+}
+
+// R1 over `count` tables (a host array of GatherTable, first_block unset)
+// of rows of `row_bytes` bytes, int64 indices where idx64 (int32
+// otherwise), on `stream`.  Returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for arguments it does not take.
+extern "C" int gather_rows(const void* tables, int count, long long row_bytes,
+                           int idx64, void* stream) {
+  if (count < 1 || count > kMaxGatherTables || row_bytes < 1 ||
+      row_bytes > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  GatherTables p;
+  memcpy(p.t, tables, sizeof(GatherTable) * count);
+  p.count = count;
+  // the widest vector that divides the row and every address
+  uintptr_t bits = (uintptr_t)row_bytes;
+  for (int k = 0; k < count; ++k)
+    bits |= (uintptr_t)p.t[k].table | (uintptr_t)p.t[k].out;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool i64 = idx64 != 0;
+  if (bits % 16 == 0) return launch_gather<uint4>(p, row_bytes, i64, s);
+  if (bits % 8 == 0) return launch_gather<uint2>(p, row_bytes, i64, s);
+  if (bits % 4 == 0) return launch_gather<unsigned>(p, row_bytes, i64, s);
+  if (bits % 2 == 0)
+    return launch_gather<unsigned short>(p, row_bytes, i64, s);
+  return launch_gather<unsigned char>(p, row_bytes, i64, s);
 }
 
 #ifdef COUNT_GLOBAL_ATOMICS

@@ -9,8 +9,9 @@ one-hot mix while training, an argmax lookup in eval mode).
 The structure (sorted morton codes, trinkets) is built once with torch on
 the device it is asked for and stays fixed; only the feature tables are
 parameters.  Every LOD's corner rows are gathered with ONE
-:func:`ops.scatter.gather_rows`, whose backward is one launch of kernel B1
-over the tables of all LODs.
+:func:`ops.scatter.gather_rows`, whose forward is one launch of kernel R1
+and whose backward is one launch of kernel B1 over the tables of all
+LODs.
 
 Spans (``record_function``, inside the field's ``field/encode``):
 ``field/octree_query`` (cells, morton search, trinkets and weights),

@@ -8,7 +8,8 @@ not reflected, as in the JAX package.
 
 Each plane is read as ``[(S+1)^2, F]`` rows: the texels of every plane of
 every LOD are gathered with ONE :func:`ops.scatter.gather_rows`, whose
-backward is one launch of kernel B1 over all twelve planes.
+forward is one launch of kernel R1 and whose backward is one launch of
+kernel B1 over all twelve planes.
 """
 from __future__ import annotations
 

@@ -17,10 +17,13 @@ run through it:
 
 :func:`gather_rows` is the feature-table gather of the alternative grid
 backbones (NGLOD corner features, VQAD corner logits, triplanar plane
-texels): its backward is the same scatter, one launch over the tables of
-every LOD (and plane) in one row space with offsets, inside the range
-``backward/encode`` on autograd's thread.  The JAX package does
-that scatter in XLA outside any Pallas kernel.
+texels).  Its forward is kernel R1 of the same source
+(:func:`gather_rows_plain` its plain twin): one launch over the tables of
+every LOD (and plane), each row copied in the widest vector its width
+allows, the indices read as int32 or int64 where they lie.  Its backward
+is the scatter, one launch over the tables in one row space with offsets,
+inside the range ``backward/encode`` on autograd's thread.  The JAX
+package leaves both to XLA outside any Pallas kernel.
 
 Dispatch: a CPU tensor takes the plain PyTorch version beside the kernel;
 a CUDA tensor launches the kernel or raises.  There is no fallback.
@@ -31,8 +34,9 @@ table are dropped by the kernel and the plain version alike, as the Pallas
 kernel drops them.
 
 Each wrapper counts its kernel launches in the counter registry
-(``launches/scatter_add``, ``launches/segment_sum``; ``utils/perf.py``) so
-a run can show the main path used the kernel.
+(``launches/scatter_add``, ``launches/segment_sum``,
+``launches/gather_rows``; ``utils/perf.py``) so a run can show the main
+path used the kernel.
 """
 from __future__ import annotations
 
@@ -228,6 +232,73 @@ def segment_sum(idx: torch.Tensor, vals: torch.Tensor,
     return _SegmentSum.apply(idx, vals, num_rows)
 
 
+MAX_GATHER_TABLES = 64        # kernel R1's kMaxGatherTables
+
+
+class _GatherTable(ctypes.Structure):
+    """``struct GatherTable`` of ``csrc/scatter.cu``: one table of kernel
+    R1 (``first_block`` is set by the launcher)."""
+    _fields_ = [('table', ctypes.c_void_p), ('idx', ctypes.c_void_p),
+                ('out', ctypes.c_void_p), ('rows', ctypes.c_longlong),
+                ('n', ctypes.c_longlong), ('first_block', ctypes.c_longlong)]
+
+
+_GATHER_SIGNATURE = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                     ctypes.c_int, ctypes.c_void_p)
+
+
+def gather_rows_plain(tables, idxs) -> list:
+    """Plain PyTorch version of kernel R1: ``[t[i.long()] for t, i]``."""
+    return [t[i.long()] for t, i in zip(tables, idxs)]
+
+
+def _launch_gather(tables, idxs, lib=None):
+    """Launch ``gather_rows`` of ``lib`` (default: kernel R1 built from
+    ``csrc/scatter.cu``) on the current stream, once for every
+    ``MAX_GATHER_TABLES`` tables that hold a row to gather; returns (the
+    outputs, the launches).  Indices are read as they come where all are
+    int32 or all int64; otherwise every one is read as int64."""
+    fn = (load('scatter') if lib is None else lib).gather_rows
+    if fn.argtypes is None:
+        fn.argtypes = _GATHER_SIGNATURE
+        fn.restype = ctypes.c_int
+    idx64 = any(i.dtype != torch.int32 for i in idxs)
+    idxs = [(i.long() if idx64 else i).contiguous() for i in idxs]
+    tables = [t.contiguous() for t in tables]
+    outs = [torch.empty((*i.shape, t.shape[1]), dtype=t.dtype,
+                        device=t.device) for t, i in zip(tables, idxs)]
+    row_bytes = tables[0].shape[1] * tables[0].element_size()
+    stream = torch.cuda.current_stream(tables[0].device).cuda_stream
+    launches = 0
+    for at in range(0, len(tables), MAX_GATHER_TABLES):
+        group = range(at, min(at + MAX_GATHER_TABLES, len(tables)))
+        if not any(idxs[k].numel() for k in group):
+            continue
+        arr = (_GatherTable * len(group))(*[
+            _GatherTable(tables[k].data_ptr(), idxs[k].data_ptr(),
+                         outs[k].data_ptr(), tables[k].shape[0],
+                         idxs[k].numel(), 0) for k in group])
+        err = fn(ctypes.addressof(arr), len(group), row_bytes, int(idx64),
+                 stream)
+        if err != 0:
+            raise RuntimeError(f'gather_rows launch failed: CUDA error {err}')
+        launches += 1
+    return outs, launches
+
+
+def _gather_forward(tables, idxs) -> list:
+    """Each ``tables[k][idxs[k]]``: :func:`gather_rows_plain` on the CPU,
+    kernel R1 on the card (counted as ``launches/gather_rows``)."""
+    dev = tables[0].device
+    if dev.type == 'cpu':
+        return gather_rows_plain(tables, idxs)
+    if dev.type != 'cuda':
+        raise RuntimeError(f'gather_rows: unsupported device {dev}')
+    outs, launches = _launch_gather(tables, idxs)
+    perf.count('launches/gather_rows', launches)
+    return outs
+
+
 class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, n, *tables_and_idx):
@@ -237,7 +308,7 @@ class _GatherRows(torch.autograd.Function):
         ctx.save_for_backward(*idxs)
         # an output outside the loss gets None, not a zero-filled gradient
         ctx.set_materialize_grads(False)
-        return tuple(t[i.long()] for t, i in zip(tables, idxs))
+        return tuple(_gather_forward(tables, idxs))
 
     @staticmethod
     def backward(ctx, *grads):
@@ -269,9 +340,10 @@ class _GatherRows(torch.autograd.Function):
 
 def gather_rows(tables, idxs):
     """``[tables[k][idxs[k]] for k]``: rows of ``[T_k, F]`` tables (one
-    width ``F``) at integer indices of any shape, each ``[*idxs[k].shape,
-    F]``.
+    width ``F`` and dtype) at integer indices of any shape, each
+    ``[*idxs[k].shape, F]``, all on one device.
 
+    The forward is ONE launch of kernel R1 on the card over every table.
     The backward adds every output's gradient rows into one zeroed f32
     table of ``sum T_k`` rows, table ``k``'s indices offset by the rows
     before it, with ONE :func:`scatter_add` (kernel B1 on the card), then
@@ -280,7 +352,11 @@ def gather_rows(tables, idxs):
     if len(tables) != len(idxs) or not tables:
         raise ValueError(f'{len(tables)} tables and {len(idxs)} index '
                          'tensors')
-    if len({t.shape[-1] for t in tables}) != 1:
-        raise ValueError('tables of one width expected, got '
-                         f'{[tuple(t.shape) for t in tables]}')
+    if any(t.dim() != 2 for t in tables) or len(
+            {(t.shape[1], t.dtype) for t in tables}) != 1:
+        raise ValueError('[T, F] tables of one width and dtype expected, '
+                         f'got {[(tuple(t.shape), t.dtype) for t in tables]}')
+    if len({x.device for x in tables + idxs}) != 1:
+        raise ValueError('tables and indices on one device expected, got '
+                         f'{sorted({str(x.device) for x in tables + idxs})}')
     return list(_GatherRows.apply(len(tables), *tables, *idxs))
