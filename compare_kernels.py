@@ -36,13 +36,13 @@ scene (``chip_smoke.v8_rays``) on the occupancy seeded from its point
 cloud and on a grid with every cell occupied, res 128, I 64; every
 version is first held bit for bit against the plain version on those and
 on the seeded grid with ``chip_smoke.dda_edge_rays``.
-Every version is launched through the port's own launch helpers (V1's
-other builds through :func:`_launch_dda`, the same call) and first held
-against the plain version on every input (1e-5 of the largest value;
-the occupancy row exactly); then the versions are timed with CUDA events,
-in order and in reverse (A B B A), each turn ``REPS`` launches or enough
-for ``TURN_MS`` of the first version's time, whichever is more (V1 also
-on the device alone, ``chip_smoke.graph_ms``: ``device_ms``).  Also counts,
+Every version is launched through the port's own launch helpers, given
+its library (``lib=``), and first held against the plain version on
+every input (1e-5 of the largest value; the occupancy row exactly);
+then the versions are timed with CUDA events, in order and in reverse (A
+B B A), each turn ``REPS`` launches or enough for ``TURN_MS`` of the
+first version's time, whichever is more (V1 also on the device alone,
+``chip_smoke.graph_ms``: ``device_ms``).  Also counts,
 from ``cuobjdump -sass`` of each version's libraries, the SASS
 instructions of each kernel (B1: one for each width F) and its
 ``MUFU.RCP`` (one per integer division by a runtime value).  Prints the
@@ -120,29 +120,6 @@ def sass_counts(lib: Path) -> dict:
     return out
 
 
-def _launch_dda(lib, state, ocfg, rays, max_isect: int) -> dict:
-    """``occupancy._launch_dda`` with ``lib``'s build of V1: the same C
-    call on the current stream into fresh outputs."""
-    import torch
-    fn = lib.voxel_dda
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    ins = [t.contiguous() for t in (rays.origins, rays.dirs, rays.dist_min,
-                                    rays.dist_max, state['occ'])]
-    shape, dev = (ins[0].shape[0], max_isect), ins[0].device
-    out = {'entries': torch.empty(shape, dtype=torch.float32, device=dev),
-           'exits': torch.empty(shape, dtype=torch.float32, device=dev),
-           'valid': torch.empty(shape, dtype=torch.bool, device=dev)}
-    err = fn(*(t.data_ptr() for t in ins),
-             *(out[k].data_ptr() for k in ('entries', 'exits', 'valid')),
-             shape[0], ocfg.res, max_isect,
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'voxel_dda launch failed: CUDA error {err}')
-    return out
-
-
 def _v8_scene(dev):
     """(data, args): the training views of ``chip_smoke.write_rtmv_scene``'s
     v8 scene, written to a temporary directory, and the v8 flags."""
@@ -177,12 +154,13 @@ def _dda_cases(dev, libs, data, args):
     for state, r in ((seeded, rays), (full, rays), (seeded, edge)):
         want = occ.voxel_crossings_plain(state, ocfg, r, I)
         for label in versions:
-            got = _launch_dda(libs[label]['voxel_dda'], state, ocfg, r, I)
+            got = occ._launch_dda(state, ocfg, r, I,
+                                  lib=libs[label]['voxel_dda'])
             if not all(torch.equal(got[k], want[k]) for k in want):
                 raise AssertionError(f'V1 {label} differs from the plain '
                                      'version')
     return [(name, {label: (lambda st=state, lib=libs[label]['voxel_dda']:
-                            _launch_dda(lib, st, ocfg, rays, I),
+                            occ._launch_dda(st, ocfg, rays, I, lib=lib),
                             None)
                     for label in versions})
             for name, state in (('voxel_dda_seeded', seeded),

@@ -13,7 +13,6 @@ Pallas kernel.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 from dataclasses import dataclass
 
@@ -22,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from shacira_tpu_torch.core.rays import Rays
-from shacira_tpu_torch.utils import perf
+from shacira_tpu_torch.kernels import launch
 
 
 @dataclass(frozen=True)
@@ -248,14 +247,13 @@ def voxel_crossings_plain(state: dict, cfg: OccupancyGridConfig, rays: Rays,
     return {'entries': fill(t_ent), 'exits': fill(t_exi), 'valid': valid}
 
 
+_DDA = launch.Entry('voxel_dda', 'voxel_dda', 'ppppppppqii')
+
+
 def _launch_dda(state: dict, cfg: OccupancyGridConfig, rays: Rays,
-                max_intersections: int) -> dict:
-    """Launch kernel V1 (``csrc/voxel_dda.cu``) on the current stream."""
-    from shacira_tpu_torch.kernels.build import load
-    fn = load('voxel_dda').voxel_dda
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+                max_intersections: int, lib=None) -> dict:
+    """Launch ``voxel_dda`` of ``lib`` (default: kernel V1 built from
+    ``csrc/voxel_dda.cu``) on the current stream."""
     res = cfg.res
     occ = state['occ']
     if occ.dtype != torch.bool or tuple(occ.shape) != (res, res, res):
@@ -274,12 +272,9 @@ def _launch_dda(state: dict, cfg: OccupancyGridConfig, rays: Rays,
     entries = torch.empty(shape, dtype=torch.float32, device=dev)
     exits = torch.empty(shape, dtype=torch.float32, device=dev)
     valid = torch.empty(shape, dtype=torch.bool, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(o.data_ptr(), d.data_ptr(), dmin.data_ptr(), dmax.data_ptr(),
-             occ.data_ptr(), entries.data_ptr(), exits.data_ptr(),
-             valid.data_ptr(), R, res, max_intersections, stream)
-    if err != 0:
-        raise RuntimeError(f'voxel_dda launch failed: CUDA error {err}')
+    _DDA(dev, o.data_ptr(), d.data_ptr(), dmin.data_ptr(), dmax.data_ptr(),
+         occ.data_ptr(), entries.data_ptr(), exits.data_ptr(),
+         valid.data_ptr(), R, res, max_intersections, lib=lib)
     return {'entries': entries, 'exits': exits, 'valid': valid}
 
 
@@ -291,14 +286,10 @@ def voxel_crossings(state: dict, cfg: OccupancyGridConfig, rays: Rays,
 
     CPU tensors take :func:`voxel_crossings_plain`; CUDA tensors launch
     kernel V1, which walks each ray with the same arithmetic."""
-    dev = rays.origins.device
-    if dev.type == 'cpu':
-        return voxel_crossings_plain(state, cfg, rays, max_intersections)
-    if dev.type != 'cuda':
-        raise RuntimeError(f'voxel_crossings: unsupported device {dev}')
-    out = _launch_dda(state, cfg, rays, max_intersections)
-    perf.count('launches/voxel_crossings', 1)
-    return out
+    return launch.dispatch(
+        'voxel_crossings', rays.origins.device,
+        lambda: voxel_crossings_plain(state, cfg, rays, max_intersections),
+        lambda: (_launch_dda(state, cfg, rays, max_intersections), 1))
 
 
 def raymarch_voxel(state: dict, cfg: OccupancyGridConfig, rays: Rays,

@@ -49,9 +49,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from shacira_tpu_torch.kernels.build import load
+from shacira_tpu_torch.kernels import launch
 from shacira_tpu_torch.ops.scatter import scatter_add
-from shacira_tpu_torch.utils import perf
 
 # XOR-hash primes of the reference kernels.
 PRIMES = (1, 2654435761, 805459861)
@@ -306,17 +305,8 @@ def lod_params(spec: HashGridSpec, lods=None):
     return out
 
 
-_ENCODE_SIGNATURE = (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
-
-
-def _f32(t: torch.Tensor) -> torch.Tensor:
-    """``t`` as contiguous f32, aligned for the kernel's vector loads."""
-    t = t.float().contiguous()
-    return t.clone() if t.data_ptr() % 16 else t
+_ENCODE = launch.Entry('hash_encode', 'hash_encode_forward', 'ppipi', _Lod,
+                       'iiqipppp')
 
 
 def _launch_encode(coords: torch.Tensor, table: torch.Tensor,
@@ -324,13 +314,10 @@ def _launch_encode(coords: torch.Tensor, table: torch.Tensor,
     """Launch ``hash_encode_forward`` (``csrc/hash_encode.cu``) on the
     current stream; the outputs of :func:`encode_plain`, ``zbar``, ``gidx``
     and ``w`` None unless ``save``."""
-    fn = load('hash_encode').hash_encode_forward
-    if fn.argtypes is None:
-        fn.argtypes = _ENCODE_SIGNATURE
-        fn.restype = ctypes.c_int
     params = lod_params(spec, lods)
-    coords, table = coords.float().contiguous(), _f32(table)
-    zt = None if zt is None else _f32(zt)
+    coords = coords.float().contiguous()
+    table = launch.aligned_f32(table)
+    zt = None if zt is None else launch.aligned_f32(zt)
     n, f = coords.shape[0], table.shape[1]
     ld = 0 if zt is None else zt.shape[1]
     num, c = len(params), 2 ** spec.dim
@@ -346,13 +333,9 @@ def _launch_encode(coords: torch.Tensor, table: torch.Tensor,
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(coords.data_ptr(), table.data_ptr(), f, ptr(zt), ld,
-             ctypes.addressof(params), num, spec.page_res, n, spec.dim,
-             feats.data_ptr(), ptr(zbar), ptr(gidx), ptr(w), stream)
-    if err != 0:
-        raise RuntimeError(f'hash_encode_forward launch failed: CUDA error '
-                           f'{err}')
+    _ENCODE(dev, coords.data_ptr(), table.data_ptr(), f, ptr(zt), ld, params,
+            num, spec.page_res, n, spec.dim, feats.data_ptr(), ptr(zbar),
+            ptr(gidx), ptr(w))
     return feats, zbar, gidx, w
 
 
@@ -374,13 +357,10 @@ def encode_forward(coords: torch.Tensor, table: torch.Tensor,
     if coords.device != table.device:
         raise ValueError(f'coords on {coords.device}, table on '
                          f'{table.device}')
-    if table.device.type == 'cpu':
-        return encode_plain(coords, table, spec, lods, zt)
-    if table.device.type != 'cuda':
-        raise RuntimeError(f'hash encode: unsupported device {table.device}')
-    out = _launch_encode(coords, table, spec, lods, zt, save)
-    perf.count('launches/hash_encode', 1)
-    return out
+    return launch.dispatch(
+        'hash_encode', table.device,
+        lambda: encode_plain(coords, table, spec, lods, zt),
+        lambda: (_launch_encode(coords, table, spec, lods, zt, save), 1))
 
 
 class _HashEncode(torch.autograd.Function):

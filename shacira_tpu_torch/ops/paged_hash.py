@@ -62,6 +62,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from shacira_tpu_torch.kernels import launch
 from shacira_tpu_torch.ops.hashgrid import (
     PRIMES, HashGridSpec, _U32, _cell_and_frac, _corner_offsets,
     _corner_weights, fold_hash, paged_params, use_direct_index)
@@ -630,30 +631,23 @@ def _check(coords_s, slot_valid, block_cell, static):
         raise ValueError('the paged encode is 3D only')
 
 
-def _launch(name, coords_s, slot_valid, block_cell, src, dst, static,
+_GATHER = launch.Entry('paged_hash', 'paged_gather', 'pppppq', _KernelParams)
+_SCATTER = launch.Entry('paged_hash', 'paged_scatter', 'pppppq', _KernelParams)
+
+
+def _launch(entry, coords_s, slot_valid, block_cell, src, dst, static,
             lib=None, occ=None):
-    """Launch entry point ``name`` of ``lib`` (default: the kernels built
+    """Launch ``entry`` (B2 or B3) of ``lib`` (default: the kernels built
     from ``csrc/paged_hash.cu``) on the current stream; ``occ`` is the
     packed occupancy grid of B2's occupancy row."""
-    if lib is None:
-        from shacira_tpu_torch.kernels.build import load
-        lib = load('paged_hash')
-    fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong,
-                                           ctypes.POINTER(_KernelParams),
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     ns = coords_s.shape[0]
     params = _kernel_params(static, dst.shape[-1], ns // block_cell.shape[0])
     if occ is not None:
         params = _KernelParams.from_buffer_copy(params)
         params.occ = occ.data_ptr()
-    stream = torch.cuda.current_stream(coords_s.device).cuda_stream
-    err = fn(coords_s.data_ptr(), slot_valid.data_ptr(),
-             block_cell.data_ptr(), src.data_ptr(), dst.data_ptr(), ns,
-             ctypes.byref(params), stream)
-    if err != 0:
-        raise RuntimeError(f'{name} launch failed: CUDA error {err}')
+    entry(coords_s.device, coords_s.data_ptr(), slot_valid.data_ptr(),
+          block_cell.data_ptr(), src.data_ptr(), dst.data_ptr(), ns, params,
+          lib=lib)
 
 
 def _device_inputs(coords_s, slot_valid, block_cell):
@@ -681,17 +675,16 @@ def paged_gather(coords_s, slot_valid, block_cell, z, static: PagedStatic,
     CUDA tensors launch the kernel."""
     _check(coords_s, slot_valid, block_cell, static)
     occ = _check_occ(static, occ)
-    if z.device.type == 'cpu':
-        return paged_gather_plain(coords_s, slot_valid, block_cell, z, static,
-                                  occ)
-    if z.device.type != 'cuda':
-        raise RuntimeError(f'paged_gather: unsupported device {z.device}')
-    out = _launch_gather(coords_s, slot_valid, block_cell, z, static, occ)
-    if out.numel():
-        perf.count('launches/paged_gather', 1)
-        if occ is not None:
+
+    def kernel():
+        out = _launch_gather(coords_s, slot_valid, block_cell, z, static, occ)
+        if out.numel() and occ is not None:
             perf.count('launches/paged_gather_occupancy', 1)
-    return out
+        return out, int(out.numel() > 0)
+
+    return launch.dispatch(
+        'paged_gather', z.device, lambda: paged_gather_plain(
+            coords_s, slot_valid, block_cell, z, static, occ), kernel)
 
 
 def _launch_gather(coords_s, slot_valid, block_cell, z, static: PagedStatic,
@@ -705,7 +698,7 @@ def _launch_gather(coords_s, slot_valid, block_cell, z, static: PagedStatic,
         return out
     coords_s, slot_valid, block_cell = _device_inputs(coords_s, slot_valid,
                                                       block_cell)
-    _launch('paged_gather', coords_s, slot_valid, block_cell,
+    _launch(_GATHER, coords_s, slot_valid, block_cell,
             z.to(torch.float32).contiguous(), out, static, lib, occ)
     return out
 
@@ -716,15 +709,12 @@ def paged_scatter(coords_s, slot_valid, block_cell, g,
     output gradient ``g`` [NS, L, ld].  CPU tensors take
     :func:`paged_scatter_plain`; CUDA tensors launch the kernel."""
     _check(coords_s, slot_valid, block_cell, static)
-    if g.device.type == 'cpu':
-        return paged_scatter_plain(coords_s, slot_valid, block_cell, g,
-                                   static)
-    if g.device.type != 'cuda':
-        raise RuntimeError(f'paged_scatter: unsupported device {g.device}')
-    grad = _launch_scatter(coords_s, slot_valid, block_cell, g, static)
-    if g.numel():
-        perf.count('launches/paged_scatter', 1)
-    return grad
+    return launch.dispatch(
+        'paged_scatter', g.device,
+        lambda: paged_scatter_plain(coords_s, slot_valid, block_cell, g,
+                                    static),
+        lambda: (_launch_scatter(coords_s, slot_valid, block_cell, g, static),
+                 int(g.numel() > 0)))
 
 
 def _launch_scatter(coords_s, slot_valid, block_cell, g, static: PagedStatic,
@@ -737,7 +727,7 @@ def _launch_scatter(coords_s, slot_valid, block_cell, g, static: PagedStatic,
         return grad
     coords_s, slot_valid, block_cell = _device_inputs(coords_s, slot_valid,
                                                       block_cell)
-    _launch('paged_scatter', coords_s, slot_valid, block_cell,
+    _launch(_SCATTER, coords_s, slot_valid, block_cell,
             g.to(torch.float32).contiguous(), grad, static, lib)
     return grad
 

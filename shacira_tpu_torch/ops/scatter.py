@@ -25,8 +25,9 @@ is the scatter, one launch over the tables in one row space with offsets,
 inside the range ``backward/encode`` on autograd's thread.  The JAX
 package leaves both to XLA outside any Pallas kernel.
 
-Dispatch: a CPU tensor takes the plain PyTorch version beside the kernel;
-a CUDA tensor launches the kernel or raises.  There is no fallback.
+Dispatch (``kernels/launch.py``): a CPU tensor takes the plain PyTorch
+version beside the kernel; a CUDA tensor launches the kernel or raises.
+There is no fallback.
 
 Unlike the JAX path, sums on the card are not bitwise deterministic: float
 atomics change the summation order from run to run.  Indices outside the
@@ -45,8 +46,7 @@ import ctypes
 import torch
 from torch.profiler import record_function
 
-from shacira_tpu_torch.kernels.build import load
-from shacira_tpu_torch.utils import perf
+from shacira_tpu_torch.kernels import launch
 
 
 def _check(idx: torch.Tensor, vals: torch.Tensor):
@@ -145,19 +145,7 @@ def scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor,
     return out[:table_size]
 
 
-_SIGNATURE = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-              ctypes.c_void_p)
-
-
-def _bind(lib):
-    """``lib``'s ``scatter_add_rows`` with its C signature, set the first
-    time a library is bound (ctypes keeps the function object)."""
-    fn = lib.scatter_add_rows
-    if fn.argtypes is None:
-        fn.argtypes = _SIGNATURE
-        fn.restype = ctypes.c_int
-    return fn
+_SCATTER = launch.Entry('scatter', 'scatter_add_rows', 'pppqiq')
 
 
 def _launch_scatter(idx: torch.Tensor, vals: torch.Tensor,
@@ -165,20 +153,20 @@ def _launch_scatter(idx: torch.Tensor, vals: torch.Tensor,
     """Launch ``scatter_add_rows`` of ``lib`` (default: the kernel built
     from ``csrc/scatter.cu``) on the current stream into a fresh
     zero-filled f32 table."""
-    fn = _bind(load('scatter') if lib is None else lib)
     idx = idx.to(torch.int32).contiguous()
-    vals = vals.to(torch.float32).contiguous()
-    if vals.data_ptr() % 16:        # the kernel's vector loads
-        vals = vals.clone()
+    vals = launch.aligned_f32(vals)
     n, f = vals.shape
     out = torch.zeros((table_size, f), dtype=torch.float32,
                       device=vals.device)
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    err = fn(idx.data_ptr(), vals.data_ptr(), out.data_ptr(), n, f,
-             table_size, stream)
-    if err != 0:
-        raise RuntimeError(f'scatter_add_rows launch failed: CUDA error {err}')
+    _SCATTER(vals.device, idx.data_ptr(), vals.data_ptr(), out.data_ptr(),
+             n, f, table_size, lib=lib)
     return out
+
+
+def _scatter(name, idx, vals, table_size):
+    return launch.dispatch(
+        name, vals.device, lambda: scatter_add_plain(idx, vals, table_size),
+        lambda: (_launch_scatter(idx, vals, table_size), 1))
 
 
 def scatter_add(idx: torch.Tensor, vals: torch.Tensor,
@@ -190,23 +178,7 @@ def scatter_add(idx: torch.Tensor, vals: torch.Tensor,
     kernel.  The JAX package rounds ``vals`` to bf16 on the TPU; the port
     accumulates in f32 like the JAX package's CPU path."""
     _check(idx, vals)
-    if vals.device.type == 'cpu':
-        return scatter_add_plain(idx, vals, table_size)
-    if vals.device.type != 'cuda':
-        raise RuntimeError(f'scatter_add: unsupported device {vals.device}')
-    out = _launch_scatter(idx, vals, table_size)
-    perf.count('launches/scatter_add', 1)
-    return out
-
-
-def _segment_sum_forward(idx, vals, num_rows):
-    if vals.device.type == 'cpu':
-        return scatter_add_plain(idx, vals, num_rows)
-    if vals.device.type != 'cuda':
-        raise RuntimeError(f'segment_sum: unsupported device {vals.device}')
-    out = _launch_scatter(idx, vals, num_rows)
-    perf.count('launches/segment_sum', 1)
-    return out
+    return _scatter('scatter_add', idx, vals, table_size)
 
 
 class _SegmentSum(torch.autograd.Function):
@@ -214,7 +186,7 @@ class _SegmentSum(torch.autograd.Function):
     def forward(ctx, idx, vals, num_rows):
         _check(idx, vals)
         ctx.save_for_backward(idx)
-        return _segment_sum_forward(idx, vals, num_rows)
+        return _scatter('segment_sum', idx, vals, num_rows)
 
     @staticmethod
     def backward(ctx, ct):
@@ -243,8 +215,7 @@ class _GatherTable(ctypes.Structure):
                 ('n', ctypes.c_longlong), ('first_block', ctypes.c_longlong)]
 
 
-_GATHER_SIGNATURE = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                     ctypes.c_int, ctypes.c_void_p)
+_GATHER = launch.Entry('scatter', 'gather_rows', _GatherTable, 'iqi')
 
 
 def gather_rows_plain(tables, idxs) -> list:
@@ -258,17 +229,13 @@ def _launch_gather(tables, idxs, lib=None):
     ``MAX_GATHER_TABLES`` tables that hold a row to gather; returns (the
     outputs, the launches).  Indices are read as they come where all are
     int32 or all int64; otherwise every one is read as int64."""
-    fn = (load('scatter') if lib is None else lib).gather_rows
-    if fn.argtypes is None:
-        fn.argtypes = _GATHER_SIGNATURE
-        fn.restype = ctypes.c_int
     idx64 = any(i.dtype != torch.int32 for i in idxs)
     idxs = [(i.long() if idx64 else i).contiguous() for i in idxs]
     tables = [t.contiguous() for t in tables]
     outs = [torch.empty((*i.shape, t.shape[1]), dtype=t.dtype,
                         device=t.device) for t, i in zip(tables, idxs)]
     row_bytes = tables[0].shape[1] * tables[0].element_size()
-    stream = torch.cuda.current_stream(tables[0].device).cuda_stream
+    dev = tables[0].device
     launches = 0
     for at in range(0, len(tables), MAX_GATHER_TABLES):
         group = range(at, min(at + MAX_GATHER_TABLES, len(tables)))
@@ -278,10 +245,7 @@ def _launch_gather(tables, idxs, lib=None):
             _GatherTable(tables[k].data_ptr(), idxs[k].data_ptr(),
                          outs[k].data_ptr(), tables[k].shape[0],
                          idxs[k].numel(), 0) for k in group])
-        err = fn(ctypes.addressof(arr), len(group), row_bytes, int(idx64),
-                 stream)
-        if err != 0:
-            raise RuntimeError(f'gather_rows launch failed: CUDA error {err}')
+        _GATHER(dev, arr, len(group), row_bytes, int(idx64), lib=lib)
         launches += 1
     return outs, launches
 
@@ -289,14 +253,9 @@ def _launch_gather(tables, idxs, lib=None):
 def _gather_forward(tables, idxs) -> list:
     """Each ``tables[k][idxs[k]]``: :func:`gather_rows_plain` on the CPU,
     kernel R1 on the card (counted as ``launches/gather_rows``)."""
-    dev = tables[0].device
-    if dev.type == 'cpu':
-        return gather_rows_plain(tables, idxs)
-    if dev.type != 'cuda':
-        raise RuntimeError(f'gather_rows: unsupported device {dev}')
-    outs, launches = _launch_gather(tables, idxs)
-    perf.count('launches/gather_rows', launches)
-    return outs
+    return launch.dispatch('gather_rows', tables[0].device,
+                           lambda: gather_rows_plain(tables, idxs),
+                           lambda: _launch_gather(tables, idxs))
 
 
 class _GatherRows(torch.autograd.Function):
