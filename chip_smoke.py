@@ -135,7 +135,12 @@ Phases, each of which must pass (exit code 1 otherwise):
                kernel R1, the gather of the same three backbones' rows in
                their forward (int32 corner rows of F = 16 and 5, int64
                texel rows of F = 4), bit-identical to t[i.long()] in one
-               launch, timed beside it with its bound;
+               launch, timed beside it with its bound; kernels M1 and
+               M1(b), VQAD's straight-through mix and blend forward and
+               backward on those logits (4 LODs x 4,194,304 samples, D 16,
+               F 5), against the plain twin (features and the logits'
+               gradients 1e-5, the dictionaries' 1e-4 of the largest
+               value), each timed beside it with its bound;
                then the app with configs/nerf_octree.yaml,
                nerf_codebook.yaml, nerf_triplanar.yaml (with --max-samples
                1048576, its one cut) and nerf_hash.yaml at full width on
@@ -1155,7 +1160,8 @@ AFTER_PRUNE = 4           # training steps past the prune
 
 LAUNCHED = ('scatter_add', 'segment_sum', 'paged_gather',
             'paged_gather_occupancy', 'paged_scatter', 'voxel_crossings',
-            'hash_encode', 'gather_rows')
+            'hash_encode', 'gather_rows', 'codebook_mix',
+            'codebook_mix_backward')
 
 
 def _launch_counts():
@@ -2848,6 +2854,133 @@ def phase_gather_kernels(dev):
     return rows
 
 
+def codebook_mix_inputs(dev):
+    """M1's inputs at VQAD's step shapes (the ``codebook.object`` cell):
+    the corner logits of the dense 'ray' march of 4096 x 1024 samples in
+    (ray, depth) order at LODs 5-8, gathered from tables drawn as VQAD
+    draws them (normal, std 0.01), their trilinear weights and masks, and
+    16 x 5 dictionaries (normal, std 0.01)."""
+    import torch
+    from shacira_tpu_torch.models.grids import octree_grid as og
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    pts, _ = ray_ordered_points(dev, gen, n_rays=4096, steps=1024,
+                                budget=4096 * 1024)
+    cfg = og.CodebookOctreeGridConfig(feature_dim=5, base_lod=5, num_lods=4,
+                                      codebook_bitwidth=4)
+    st = og.OctreeStructure.make_dense(cfg, device=dev)
+    parts = og._corners(cfg, st, pts)
+    del pts
+    tables = [torch.randn((st.num_corners[lod], 16), generator=gen,
+                          device=dev) * 0.01 for lod in cfg.active_lods]
+    logits = og._gather(tables, parts)
+    del tables
+    dicts = [torch.randn((16, 5), generator=gen, device=dev) * 0.01
+             for _ in cfg.active_lods]
+    return (logits, dicts, [w for _, w, _ in parts],
+            [v for _, _, v in parts])
+
+
+def mix_bound_ms(logits, dicts, weights, valid, backward: bool) -> float:
+    """Least time of M1 (or M1(b)): its inputs read once and its outputs
+    written once at 3.35 TB/s.  Forward: logits, weights, masks and
+    dictionaries in, features out; backward: the same and the output
+    gradients in, the logits' and dictionaries' gradients out."""
+    f = dicts[0].shape[1]
+    byts = sum(x.numel() * x.element_size() for x in
+               (*logits, *dicts, *weights, *valid))
+    rows = sum(l.shape[0] for l in logits)
+    byts += rows * f * 4                      # features, or their gradients
+    if backward:
+        byts += sum(x.numel() * x.element_size() for x in (*logits, *dicts))
+    return byts / HBM_BYTES_PER_S * 1e3
+
+
+def check_codebook_mix(dev, reps: int = 5) -> dict:
+    """Kernels M1 and M1(b) (through their launch helper) against the
+    plain twin at ``codebook_mix_inputs``: the features, the logits' and
+    the dictionaries' gradients (error over the largest value), each
+    timed with its bound; the plain twin timed a LOD at a time (its
+    backward alone, the graph kept)."""
+    import torch
+    from shacira_tpu_torch.ops import codebook
+    logits, dicts, weights, valid = codebook_mix_inputs(dev)
+    n, f = len(logits), dicts[0].shape[1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    grads = [torch.randn((l.shape[0], f), generator=gen, device=dev)
+             for l in logits]
+    outs = [torch.empty((l.shape[0], f), device=dev) for l in logits]
+    dls = [torch.empty_like(l) for l in logits]
+    dds = [torch.zeros_like(t) for t in dicts]
+
+    def forward():
+        codebook._launch(codebook._FORWARD, logits, dicts, weights, valid,
+                         outs=outs)
+
+    def backward():
+        for t in dds:
+            t.zero_()
+        codebook._launch(codebook._BACKWARD, logits, dicts, weights, valid,
+                         grads=grads, dls=dls, dds=dds)
+
+    forward()
+    backward()
+    torch.cuda.synchronize()
+    err = {'features': 0.0, 'logits_grad': 0.0, 'dictionary_grad': 0.0}
+    plain_ms = {'forward': 0.0, 'backward': 0.0}
+    for k in range(n):
+        ls = logits[k].detach().clone().requires_grad_()
+        ds = dicts[k].detach().clone().requires_grad_()
+        with torch.no_grad():
+            plain_ms['forward'] += time_ms(
+                lambda: codebook.codebook_mix_plain(
+                    [ls], [ds], weights[k:k + 1], valid[k:k + 1]), reps)
+        out, = codebook.codebook_mix_plain([ls], [ds], weights[k:k + 1],
+                                           valid[k:k + 1])
+        plain_ms['backward'] += time_ms(lambda: torch.autograd.grad(
+            out, (ls, ds), grads[k], retain_graph=True), reps)
+        gl, gd = torch.autograd.grad(out, (ls, ds), grads[k])
+        for name, got, want in (('features', outs[k], out),
+                                ('logits_grad', dls[k], gl),
+                                ('dictionary_grad', dds[k], gd)):
+            want = want.detach().double()
+            gap = float((got.double() - want).abs().max()
+                        / want.abs().max().clamp(min=1e-30))
+            err[name] = max(err[name], gap)
+        del ls, ds, out, gl, gd
+        torch.cuda.empty_cache()
+    rows = {}
+    for name, fn, back, e in (
+            ('codebook_mix', forward, False, err['features']),
+            ('codebook_mix_backward', backward, True,
+             max(err['logits_grad'], err['dictionary_grad']))):
+        ms = time_ms(fn, reps)
+        b_ms = mix_bound_ms(logits, dicts, weights, valid, back)
+        p_ms = plain_ms['backward' if back else 'forward']
+        log(f'  {name}: lods={n} samples={logits[0].shape[0]} '
+            f'D={dicts[0].shape[0]} F={f} kernel {ms:.4f} ms, plain '
+            f'{p_ms:.4f} ms, bound {b_ms:.4f} ms (bytes), '
+            f'{100 * b_ms / ms:.2f} % of it; error over the largest value '
+            f'{json.dumps(err)}')
+        rows[name] = {
+            'max_abs_err': None, 'max_rel_err': e, 'ms': ms,
+            'plain_ms': p_ms, 'bound_ms': b_ms, 'bound_by': 'bytes',
+            'library_ms': None,
+            'use': ('VQAD\'s straight-through mix and trilinear blend, '
+                    + ('backward' if back else 'forward') + ', 4 LODs x '
+                    '4,194,304 samples x 8 corners, D 16, F 5 (JAX: left '
+                    'to XLA, shacira_tpu/models/grids/octree_grid.py:'
+                    '194-203)'),
+            'source': 'shacira_tpu_torch/csrc/codebook_mix.cu',
+            'replaces': 'none (the XLA softmax, argmax, one-hot and einsum)'}
+    if not (err['features'] <= 1e-5 and err['logits_grad'] <= 1e-5
+            and err['dictionary_grad'] <= 1e-4):
+        raise AssertionError(f'kernels M1 / M1(b) differ from the plain '
+                             f'twin: {err}')
+    return rows
+
+
 def _drive_backbone(dev, name, argv, data, n_steps):
     """The app's ``main`` on ``argv`` (training across the prunes), then
     ``--resume true --valid-only``, whose PSNR must equal the trained
@@ -2980,6 +3113,9 @@ def phase_backbones(dev, rows) -> dict:
         rows.update(phase_backbone_kernels(dev))
         log('phase gather_kernels:')
         rows.update(phase_gather_kernels(dev))
+        log('phase codebook_kernels:')
+        rows.update(check_codebook_mix(dev))
+        torch.cuda.empty_cache()
         log(f'  structure builds (s): {json.dumps(seconds)}')
         with tempfile.TemporaryDirectory() as tmp:
             scene = os.path.join(tmp, 'scene')
@@ -3963,6 +4099,8 @@ def main(argv=None) -> int:
                ('gather_rows_codebook', 'gather_rows', 'codebook'),
                ('gather_rows_octree', 'gather_rows', 'octree'),
                ('gather_rows_triplanar', 'gather_rows', 'triplanar'),
+               ('codebook_mix', 'codebook_mix', 'codebook'),
+               ('codebook_mix_backward', 'codebook_mix_backward', 'codebook'),
                ('segment_sum_extras', 'segment_sum', 'viewer_extras'),
                ('segment_sum_extras_frame', 'segment_sum', 'viewer_extras'))
     counts = ('updates', 'atomics', 'distinct_per_tile',
@@ -4008,6 +4146,10 @@ def main(argv=None) -> int:
     for path in ('octree', 'codebook', 'triplanar', 'octree_rtmv'):
         if launches[path]['gather_rows'] <= 0:
             missing.append(f'gather_rows ({path} path)')
+    # and VQAD M1 and M1(b) in its training steps
+    for wrapper in ('codebook_mix', 'codebook_mix_backward'):
+        if launches['codebook'][wrapper] <= 0:
+            missing.append(f'{wrapper} (codebook path)')
     if launches['triplanar']['voxel_crossings'] <= 0:
         missing.append('voxel_crossings (triplanar path)')
     # the viewer's training steps (B1(a), B1(b)) and its frames' sums

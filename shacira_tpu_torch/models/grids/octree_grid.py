@@ -13,11 +13,18 @@ parameters.  Every LOD's corner rows are gathered with ONE
 and whose backward is one launch of kernel B1 over the tables of all
 LODs.
 
+VQAD's training mix and blend (softmax, argmax, straight-through keys,
+dictionary product and the corners' sum) is :func:`ops.codebook.
+codebook_mix`: on the card one launch of kernel M1 over every LOD forward
+and one of M1(b) backward.
+
 Spans (``record_function``, inside the field's ``field/encode``):
 ``field/octree_query`` (cells, morton search, trinkets and weights),
 ``field/gather`` (the corner rows' gather) and, for VQAD,
-``field/codebook_mix`` (softmax, argmax, one-hot and the dictionary
-product).  While a profiler records a training step, the counter
+``field/codebook_mix`` (training: the mix and the blend of every LOD;
+eval: each LOD's argmax lookup).  The mix's backward is the range
+``backward/codebook_mix`` on autograd's thread.  While a profiler records
+a training step, the counter
 ``field/corner_rows`` (rows gathered) adds host numbers
 (``utils/perf.py``).
 """
@@ -31,6 +38,7 @@ import torch
 from torch.profiler import record_function
 
 from shacira_tpu_torch.ops import coding, spc
+from shacira_tpu_torch.ops.codebook import codebook_mix
 from shacira_tpu_torch.ops.scatter import gather_rows
 from shacira_tpu_torch.utils import perf
 
@@ -221,33 +229,33 @@ def codebook_grid_init(generator: torch.Generator,
     return {'logits': logits, 'dictionary': dicts}
 
 
-def _codebook_lookup(l: torch.Tensor, dictionary: torch.Tensor,
-                     training: bool) -> torch.Tensor:
-    """Dictionary entries of gathered logits [..., D]: training mixes with
-    the straight-through softmax ``y_soft + (hard - y_soft).detach()``;
-    eval looks the argmax up (both argmaxes take the first maximum)."""
+def _codebook_lookup(l: torch.Tensor, dictionary: torch.Tensor
+                     ) -> torch.Tensor:
+    """Eval mode: the dictionary entries of gathered logits [..., D] at
+    their argmax (the first maximum, as in training)."""
     with record_function('field/codebook_mix'):
-        if training:
-            y_soft = torch.softmax(l, dim=-1)
-            # the one-hot of the argmax, built in f32 (F.one_hot's int64
-            # would double the largest tensor of the step)
-            hard = torch.zeros_like(y_soft).scatter_(
-                -1, torch.argmax(y_soft, dim=-1, keepdim=True), 1.0)
-            keys = y_soft + (hard - y_soft).detach()
-            return torch.einsum('...d,df->...f', keys, dictionary)
         return dictionary[torch.argmax(l, dim=-1)]
 
 
 def codebook_interpolate(params: dict, cfg: CodebookOctreeGridConfig,
                          structure, coords: torch.Tensor, *,
                          training: bool = True) -> torch.Tensor:
+    """coords [..., 3] -> [..., output_dim]: training mixes the dictionary
+    with the straight-through softmax (:func:`codebook_mix`, the blend
+    included); eval looks the argmax up."""
     lead = coords.shape[:-1]
     c = coords.reshape(-1, 3)
     parts = _corners(cfg, structure, c)
     logits = _gather(params['logits'], parts)
-    feats = []
-    for l, dictionary, (_, w, v) in zip(logits, params['dictionary'], parts):
-        feats.append(_blend(_codebook_lookup(l, dictionary, training), w, v))
+    if training:
+        with record_function('field/codebook_mix'):
+            feats = codebook_mix(logits, params['dictionary'],
+                                 [w for _, w, _ in parts],
+                                 [v for _, _, v in parts])
+    else:
+        feats = [_blend(_codebook_lookup(l, dictionary), w, v)
+                 for l, dictionary, (_, w, v)
+                 in zip(logits, params['dictionary'], parts)]
     return _multiscale(feats, cfg, lead)
 
 

@@ -15,7 +15,8 @@ import pytest
 torch = pytest.importorskip('torch')
 from shacira_tpu_torch.accel import occupancy  # noqa: E402
 from shacira_tpu_torch.kernels import build, launch  # noqa: E402
-from shacira_tpu_torch.ops import hashgrid, paged_hash, scatter  # noqa: E402
+from shacira_tpu_torch.ops import (  # noqa: E402
+    codebook, hashgrid, paged_hash, scatter)
 from shacira_tpu_torch.utils import perf  # noqa: E402
 
 STREAM = 0x5eed
@@ -167,7 +168,8 @@ _C_NAMES = {ctypes.c_void_p: 'p', ctypes.c_int: 'int',
 
 @pytest.mark.parametrize('entry', [
     hashgrid._ENCODE, scatter._SCATTER, scatter._GATHER, paged_hash._GATHER,
-    paged_hash._SCATTER, occupancy._DDA], ids=lambda e: e.symbol)
+    paged_hash._SCATTER, occupancy._DDA, codebook._FORWARD,
+    codebook._BACKWARD], ids=lambda e: e.symbol)
 def test_entry_matches_its_c_prototype(entry):
     got = ['p' if issubclass(t, ctypes._Pointer) else _C_NAMES[t]
            for t in entry.argtypes]

@@ -191,13 +191,16 @@ def test_the_step_equals_the_reference(head):
 
 
 def test_the_grid_in_bf16_fails_the_tolerances(monkeypatch):
-    """A planted fault: the codebook mix computed in bf16."""
-    lookup = og._codebook_lookup
+    """A planted fault: the codebook mix fed logits and dictionaries
+    rounded to bf16."""
+    mix = og.codebook_mix
 
-    def bf16(l, dictionary, training):
-        return lookup(l.bfloat16(), dictionary.bfloat16(), training).float()
+    def bf16(logits, dictionaries, weights, valid):
+        return mix([l.bfloat16().float() for l in logits],
+                   [d.bfloat16().float() for d in dictionaries], weights,
+                   valid)
 
-    monkeypatch.setattr(og, '_codebook_lookup', bf16)
+    monkeypatch.setattr(og, 'codebook_mix', bf16)
     over, block, *tols = HEADS['f32']
     s = dict(_settings(), **over)
     tr = _trainer(s)
