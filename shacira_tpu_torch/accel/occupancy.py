@@ -19,9 +19,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from shacira_tpu_torch.core.rays import Rays
 from shacira_tpu_torch.kernels import launch
+from shacira_tpu_torch.utils import perf
 
 
 @dataclass(frozen=True)
@@ -272,9 +274,14 @@ def _launch_dda(state: dict, cfg: OccupancyGridConfig, rays: Rays,
     entries = torch.empty(shape, dtype=torch.float32, device=dev)
     exits = torch.empty(shape, dtype=torch.float32, device=dev)
     valid = torch.empty(shape, dtype=torch.bool, device=dev)
-    _DDA(dev, o.data_ptr(), d.data_ptr(), dmin.data_ptr(), dmax.data_ptr(),
-         occ.data_ptr(), entries.data_ptr(), exits.data_ptr(),
-         valid.data_ptr(), R, res, max_intersections, lib=lib)
+    # a profile gives a ctypes launch to the innermost op record on its
+    # thread, which a record_function range is not: without one of its
+    # own, V1 would fall outside 'trace/dda'
+    with torch._C._profiler._RecordFunctionFast('dda_launch'):
+        _DDA(dev, o.data_ptr(), d.data_ptr(), dmin.data_ptr(),
+             dmax.data_ptr(), occ.data_ptr(), entries.data_ptr(),
+             exits.data_ptr(), valid.data_ptr(), R, res, max_intersections,
+             lib=lib)
     return {'entries': entries, 'exits': exits, 'valid': valid}
 
 
@@ -285,11 +292,19 @@ def voxel_crossings(state: dict, cfg: OccupancyGridConfig, rays: Rays,
     ray in depth order (slots past the count hold 0).
 
     CPU tensors take :func:`voxel_crossings_plain`; CUDA tensors launch
-    kernel V1, which walks each ray with the same arithmetic."""
-    return launch.dispatch(
-        'voxel_crossings', rays.origins.device,
-        lambda: voxel_crossings_plain(state, cfg, rays, max_intersections),
-        lambda: (_launch_dda(state, cfg, rays, max_intersections), 1))
+    kernel V1, which walks each ray with the same arithmetic.  The walk
+    runs in the range ``trace/dda`` (V1's launch belongs to it in a
+    profile); while a profiler records, a training step's valid crossings
+    are counted as ``trace/crossings`` (no sync)."""
+    with record_function('trace/dda'):
+        c = launch.dispatch(
+            'voxel_crossings', rays.origins.device,
+            lambda: voxel_crossings_plain(state, cfg, rays,
+                                          max_intersections),
+            lambda: (_launch_dda(state, cfg, rays, max_intersections), 1))
+    if perf.tracing() and torch.is_grad_enabled():
+        perf.count('trace/crossings', c['valid'].sum())
+    return c
 
 
 def raymarch_voxel(state: dict, cfg: OccupancyGridConfig, rays: Rays,
