@@ -21,7 +21,11 @@ Phases, each of which must pass (exit code 1 otherwise):
                forward E1 (the lego step's and prune's shapes, kodak's 2D
                lattice, HashGrid's dense march, an SDF step: corner rows
                bit-identical, weights within an ulp, features within 1e-6
-               of the largest value), paged gather B2 (train
+               of the largest value), the flat encode's backward E1(b)
+               (lego's and V8's step shapes: the scatter's rows within
+               1e-6 of the largest, rows of a zero gradient zero, the
+               scale and shift gradients within 1e-4; also timed with B1
+               after it against the eager backward), paged gather B2 (train
                and prune shapes, and at train shapes with its occupancy row
                of a 128^3 grid, which must equal the plain version's
                exactly) and paged scatter B3.  For B1 and B3 also
@@ -41,7 +45,7 @@ Phases, each of which must pass (exit code 1 otherwise):
                an analytic scene built in memory, across one prune (4 steps
                past it), then evaluate one view.  Launch counts are zeroed
                just before and read just after; B1(a) and B1(b) must have
-               launched;
+               launched, and E1(b) once in the first step;
 5. profile  -- device time by step stage and host syncs per step under
                torch.profiler, after the prune and before the first one;
 6. paged    -- the same lego config on the paged layout (the flags of
@@ -114,7 +118,8 @@ Phases, each of which must pass (exit code 1 otherwise):
                on that scene, 104 steps across the prune at 100 from the
                point cloud's occupancy, then ``--valid-only`` (its PSNR
                equal to the trained run's to 1e-4 dB); B1(a) and V1 every
-               step; the step timed and profiled outside the app;
+               step; the step timed and profiled outside the app, E1(b)
+               once in its first step;
 18. voxel   -- bench_nerf.measure_voxel's setting (``VOXEL_FLAGS``: V8's
                grid paged, adaptive budgets, term_tau 11.5) through the
                config reader on the lego-like Blender scene, 210 steps
@@ -559,6 +564,129 @@ def phase_encode_kernel(dev):
     inputs = encode_inputs(dev)
     for name in list(inputs):
         rows[name] = check_encode(name, *inputs.pop(name))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def encode_backward_bound(n: int, lods: int, c: int, f: int, ld: int,
+                          live: float) -> float:
+    """Least ms of kernel E1(b): g read once, w and zbar read for the
+    share ``live`` of (point, LOD) rows whose gradient is not all zero, the
+    scatter's rows written once, at 3.35 TB/s."""
+    per_row = f + live * (c + ld) + c * (ld or f)
+    return n * lods * per_row * 4 / HBM_BYTES_PER_S * 1e3
+
+
+def encode_backward_inputs(dev):
+    """E1(b)'s inputs at the step shapes of the cells that run it, name ->
+    (g, gidx, w, zbar, scale, total_size, live share, reps, use); the
+    forward's gidx, w and zbar from E1:
+
+    * ``hash_encode_backward``: the lego step, the stride-compacted
+      1,048,576 rows of ``ray_ordered_points``, 24 LODs, F 4, ld 1, g zero
+      on the padding rows past the first 11.3 % (the share of live slots
+      ``slot_use.nerf`` reads in the lego cell), which the compaction puts
+      last;
+    * ``hash_encode_backward_v8``: V8's dense step, 4096 rays x 64
+      crossings x 16 steps of points in the cube, 20 LODs at 2^17, F 4,
+      ld 2, g zero past each ray's valid crossings (18 to 64 of them, 64 %
+      of the slots live, as ``slot_use.v8`` reads)."""
+    import torch
+    from shacira_tpu_torch.ops import hashgrid
+    from shacira_tpu_torch.ops.hashgrid import (
+        HashGridSpec, geometric_resolutions)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {}
+    for name, spec, ld, n_live, reps, use in (
+            ('hash_encode_backward',
+             HashGridSpec(geometric_resolutions(16, 512, 24), 19, 3), 1,
+             None, 20, 'the lego step (affine, 24 LODs, F 4, ld 1)'),
+            ('hash_encode_backward_v8',
+             HashGridSpec(geometric_resolutions(16, 512, 20), 17, 3), 2,
+             (18, 65), 5, "V8's dense step (affine, 20 LODs, F 4, ld 2)")):
+        if n_live is None:
+            pts, _ = ray_ordered_points(dev, gen, budget=1 << 20)
+            live = torch.arange(pts.shape[0], device=dev) < int(
+                0.113 * pts.shape[0])
+        else:
+            pts = torch.rand((4096 * 1024, 3), generator=gen,
+                             device=dev) * 2 - 1
+            valid = torch.randint(*n_live, (4096, 1), generator=gen,
+                                  device=dev)
+            live = (torch.arange(64, device=dev) < valid)[:, :, None] \
+                .expand(4096, 64, 16).reshape(-1)
+        z = torch.randn((spec.total_size, ld), generator=gen,
+                        device=dev) * 0.1
+        scale = torch.randn((ld, 4), generator=gen, device=dev)
+        _, zbar, gidx, w = hashgrid.encode_forward(
+            pts, z @ scale, spec, None, z)
+        del pts, z
+        g = torch.randn((live.shape[0], spec.num_lods, 4), generator=gen,
+                        device=dev) * live[:, None, None]
+        out[name] = (g, gidx, w, zbar, scale, spec.total_size,
+                     float(live.float().mean()), reps, use)
+    return out
+
+
+def check_encode_backward(name, g, gidx, w, zbar, scale, total_size, live,
+                          reps, use):
+    """Kernel E1(b) (through its launch helper) against
+    ``hashgrid.backward_updates_plain`` on one input: the scatter's rows
+    within 1e-6 of the largest, rows of a zero gradient exactly zero,
+    grad_scale and grad_shift within 1e-4 of their largest; both timed, and
+    the whole backward (with B1) on each.  Returns a row of the kernels
+    line (launches filled in later)."""
+    import torch
+    from shacira_tpu_torch.ops import hashgrid
+    got = hashgrid._launch_encode_backward(g, w, zbar, scale)
+    want = hashgrid.backward_updates_plain(g, w, zbar, scale)
+    torch.cuda.synchronize()
+    err = float((got[0] - want[0]).abs().max())
+    rel = err / max(float(want[0].abs().max()), 1e-30)
+    zero_rows_zero = not bool(got[0][(g == 0).all(-1).t()].any())
+    sums_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                   for a, b in zip(got[1:], want[1:]))
+    identical = all(torch.equal(a, b) for a, b in zip(got, want))
+    del got, want
+    ms = time_ms(lambda: hashgrid._launch_encode_backward(g, w, zbar, scale),
+                 reps)
+    plain_ms = time_ms(lambda: hashgrid.backward_updates_plain(
+        g, w, zbar, scale), max(1, reps // 4))
+    backward_ms = time_ms(lambda: hashgrid.encode_backward(
+        g, gidx, w, zbar, scale, total_size), reps)
+    plain_backward_ms = time_ms(lambda: hashgrid.encode_backward_plain(
+        g, gidx, w, zbar, scale, total_size), max(1, reps // 4))
+    n, lods, f = g.shape
+    c, ld = w.shape[2], 0 if scale is None else scale.shape[0]
+    b_ms = encode_backward_bound(n, lods, c, f, ld, live)
+    log(f'  {name}: N={n} L={lods} C={c} F={f} ld={ld} live={live:.3f} '
+        f'bit_identical={identical} max_rel_err={rel:.3e} '
+        f'zero_rows_zero={zero_rows_zero} sums_max_rel_err={sums_rel:.3e} '
+        f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms '
+        f'(bytes); with B1: kernel {backward_ms:.4f} ms, plain '
+        f'{plain_backward_ms:.4f} ms')
+    if not (rel <= 1e-6 and zero_rows_zero and sums_rel <= 1e-4):
+        raise AssertionError(f'{name}: kernel E1(b) disagrees with its '
+                             f'plain version')
+    return {'max_abs_err': err, 'max_rel_err': rel,
+            'sums_max_rel_err': sums_rel, 'bit_identical': identical,
+            'ms': ms, 'plain_ms': plain_ms, 'backward_ms': backward_ms,
+            'plain_backward_ms': plain_backward_ms, 'bound_ms': b_ms,
+            'bound_by': 'bytes', 'library_ms': None, 'use': use,
+            'source': 'shacira_tpu_torch/csrc/hash_encode.cu',
+            'replaces': "none (the XLA VJP of hash_encode_affine, "
+                        "shacira_tpu/ops/hashgrid.py)"}
+
+
+def phase_encode_backward_kernel(dev):
+    """Kernel E1(b) at every shape of ``encode_backward_inputs``."""
+    import torch
+    rows = {}
+    inputs = encode_backward_inputs(dev)
+    for name in list(inputs):
+        rows[name] = check_encode_backward(name, *inputs.pop(name))
         torch.cuda.empty_cache()
     return rows
 
@@ -1160,8 +1288,8 @@ AFTER_PRUNE = 4           # training steps past the prune
 
 LAUNCHED = ('scatter_add', 'segment_sum', 'paged_gather',
             'paged_gather_occupancy', 'paged_scatter', 'voxel_crossings',
-            'hash_encode', 'gather_rows', 'codebook_mix',
-            'codebook_mix_backward')
+            'hash_encode', 'hash_encode_backward', 'gather_rows',
+            'codebook_mix', 'codebook_mix_backward')
 
 
 def _launch_counts():
@@ -1223,6 +1351,7 @@ def phase_lego(dev, prune_every, paged: bool = False, fine_mode='deferred'):
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     first_s = timed(1)
+    in_first_step = _launch_counts()
     block_s = timed(args.prune_every - 2)
     before_prune = _launch_counts()
     prune_s = timed(1)
@@ -1266,6 +1395,10 @@ def phase_lego(dev, prune_every, paged: bool = False, fine_mode='deferred'):
         # E1: one forward of the step plus one in the prune
         raise AssertionError(f'E1 launches in the prune step: '
                              f'{in_prune_step}')
+    if not paged and in_first_step['hash_encode_backward'] != 1:
+        # E1(b): one in the step's backward
+        raise AssertionError(f'E1(b) launches in a flat step: '
+                             f'{in_first_step}')
     if paged:
         # one forward of the step plus one in the prune; one per eval batch
         if in_prune_step['paged_gather'] != 2:
@@ -2454,8 +2587,13 @@ def phase_v8(dev, scene, tmp, data):
                              f'{launches}')
     # the step outside the app: timed, then profiled, before the prune
     fresh = build_trainer(args, data)
+    before = _launch_counts()
     fresh.train(num_iterations=1)
     torch.cuda.synchronize()
+    in_step = _delta(_launch_counts(), before)
+    if in_step['hash_encode_backward'] != 1:
+        # E1(b): one in the step's backward
+        raise AssertionError(f'v8: E1(b) launches in a step: {in_step}')
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     fresh.train(num_iterations=10)
@@ -4000,6 +4138,7 @@ def main(argv=None) -> int:
     log('phase kernels:')
     rows = phase_kernels(dev)
     rows.update(phase_encode_kernel(dev))
+    rows.update(phase_encode_backward_kernel(dev))
     rows.update(phase_paged_kernels(dev))
     log('phase parity:')
     for march in PARITY_MARCHES:
@@ -4077,6 +4216,8 @@ def main(argv=None) -> int:
                ('hash_encode_image', 'hash_encode', 'image'),
                ('hash_encode_hash', 'hash_encode', 'hash'),
                ('hash_encode_sdf', 'hash_encode', 'sdf'),
+               ('hash_encode_backward', 'hash_encode_backward', 'lego'),
+               ('hash_encode_backward_v8', 'hash_encode_backward', 'v8'),
                ('paged_gather', 'paged_gather', 'paged'),
                ('paged_gather_prune', 'paged_gather', 'paged'),
                ('paged_gather_occupancy', 'paged_gather_occupancy', 'kernel'),
@@ -4106,7 +4247,8 @@ def main(argv=None) -> int:
     counts = ('updates', 'atomics', 'distinct_per_tile',
               'occupancy_row_mismatches', 'valid_mismatches', 'max_ulps',
               'steps_walked', 'longest_walk', 'us_per_step', 'crossings',
-              'device_ms', 'bit_identical')
+              'device_ms', 'bit_identical', 'sums_max_rel_err',
+              'backward_ms', 'plain_backward_ms')
     kernels = []
     for name, wrapper, path in path_of:
         row = rows[name]

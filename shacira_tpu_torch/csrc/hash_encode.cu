@@ -1,6 +1,7 @@
 // Flat multi-LOD hash-grid encode, forward, for Hopper (kernel E1): the
 // features of N points at every LOD of a concatenated hash table, in one
-// launch over all LODs.
+// launch over all LODs.  Its backward up to the scatter, kernel E1(b), is
+// further down, with a note of its own.
 //
 // It replaces no Pallas kernel.  The JAX package's flat forward
 // (shacira_tpu/ops/hashgrid.py, hash_encode) is a plain gather left to
@@ -395,6 +396,290 @@ uintptr_t vector_bytes(int cols) {
   return cols % 4 == 0 ? 16 : cols % 2 == 0 ? 8 : 4;
 }
 
+// ---------------------------------------------------------------------------
+// Kernel E1(b): the flat encode's backward up to the scatter.
+//
+// It replaces no Pallas kernel: the JAX package takes the encode's VJP
+// through XLA (shacira_tpu/ops/hashgrid.py, hash_encode and
+// hash_encode_affine).  The port ran it as eager PyTorch
+// (ops/hashgrid.py, backward_updates_plain): a GEMM gz = g @ scale^T, its
+// permute, the broadcast product upd = gz * w, a copy of upd where that
+// product came out strided, and two einsums for grad_scale and
+// grad_shift, which copy g into [L, N, F] order or reduce w first.  At
+// V8's step (N = 4,194,304 slots, L = 20, C = 8, F = 4, ld = 2) that was
+// ~30 ms of device time a step.
+//
+// What bounds it.  It has to read g [N, L, F], the corner weights w
+// [L, N, C] and the blended latents zbar [L, N, ld] once, and write the
+// scatter's rows upd [L, N, C, W] (W = ld, or F without the affine decode)
+// once: 10.07 GB at V8's step, 3.0 ms at 3.35 TB/s.  Where a row of g is
+// all zero (a masked slot, a padding row) w and zbar need not be read: at
+// V8's 36 % masked slots the bound is 2.65 ms.  The arithmetic, W x F
+// products a row, is far below the card's.
+//
+// Design.  g is n-outer and every other tensor l-outer.  A block of 4
+// warps takes a tile of 32 consecutive points and stages their g rows at
+// every LOD (32 x L x F floats, contiguous in g) in shared memory with
+// coalesced loads.  Then each warp takes LODs warp, warp + 4, ...: lane i
+// holds point n0 + i at LOD l, reads its w and zbar rows (consecutive
+// lanes on consecutive rows: a warp reads 1 KB of w in whole lines),
+// computes gz = g . scale^T in registers and adds its terms of grad_scale
+// and grad_shift to sums of its own.  The warp stages its 32 rows of w and
+// gz in shared memory and writes upd with consecutive lanes on consecutive
+// 16-byte vectors (a row of C x W floats is a multiple of 16 bytes), so
+// every store fills whole lines.  A row whose g is all zero writes zeros
+// and reads neither w nor zbar; that is exact, its products being zero.
+//
+// grad_scale and grad_shift are deterministic: the grid is one wave of
+// blocks that walk the tiles; each block adds its threads' sums in a
+// fixed order (a warp butterfly, then the warps in turn) into one column
+// of a scratch buffer, and the last block to finish (an integer counter,
+// no float atomics) adds the columns in block order.
+//
+// upd is the eager product's rounding of gz * w; gz is a sum of F products
+// (fmaf in order), which the GEMM may take in another order, so upd lies
+// within an ulp or two of the eager rows and the two gradients within
+// their f32 sums' rounding.  C (4 or 8) and the widths the port's configs
+// run are template parameters (C 8: F 4 with ld 2, 1 or none, F 2 with
+// none; C 4: F 1 with ld 1); other F and ld up to kMaxWidth take loops
+// over columns known at run time.
+
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kBwdTile = 32;                  // points a tile, one a lane
+constexpr int kMaxWidth = 8;                  // the largest F and ld
+constexpr int kMaxSums = kMaxWidth * kMaxWidth + kMaxWidth;
+
+// The sum of v over the warp, every lane adding in the same fixed order.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+// F > 0: F columns of g; F == 0: f_rt of them (up to kMaxWidth).  LD > 0:
+// the affine path at ld = LD; LD == -1: the affine path at ld_rt; LD == 0:
+// no decode, upd = w * g.
+template <int C, int F, int LD>
+__global__ void __launch_bounds__(kBwdThreads)
+hash_encode_backward_kernel(const float* __restrict__ g,
+                            const float* __restrict__ w,
+                            const float* __restrict__ zbar,
+                            const float* __restrict__ scale, int64_t n,
+                            int nl, int f_rt, int ld_rt, int gstride,
+                            float* __restrict__ upd,
+                            float* __restrict__ partials,
+                            unsigned int* __restrict__ done,
+                            float* __restrict__ grad_scale,
+                            float* __restrict__ grad_shift) {
+  constexpr bool kAffine = LD != 0;
+  constexpr int kF = F > 0 ? F : kMaxWidth;
+  constexpr int kLd = LD > 0 ? LD : LD == 0 ? 1 : kMaxWidth;
+  constexpr int kW = kAffine ? kLd : kF;
+  const int f = F > 0 ? F : f_rt;
+  const int ld = LD > 0 ? LD : ld_rt;
+  const int wd = kAffine ? ld : f;            // upd's columns
+  extern __shared__ float g_tile[];           // [kBwdTile][gstride]
+  __shared__ float w_rows[kBwdWarps][kBwdTile * C];
+  __shared__ float gz_rows[kBwdWarps][kBwdTile * kW];
+  __shared__ float sc[kAffine ? kLd * kF : 1];
+  __shared__ float sums[kBwdWarps][kAffine ? kMaxSums : 1];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lf = nl * f;
+  if constexpr (kAffine) {
+    for (int i = threadIdx.x; i < kLd * kF; i += kBwdThreads) {
+      const int d = i / kF, k = i - d * kF;
+      sc[i] = d < ld && k < f ? scale[d * f + k] : 0.0f;
+    }
+  }
+  // this thread's terms of grad_scale [ld, F] and grad_shift [F]
+  float acc_s[kLd][kF], acc_h[kF];
+#pragma unroll
+  for (int k = 0; k < kF; ++k) {
+    acc_h[k] = 0.0f;
+#pragma unroll
+    for (int d = 0; d < kLd; ++d) acc_s[d][k] = 0.0f;
+  }
+  const int64_t tiles = (n + kBwdTile - 1) / kBwdTile;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t n0 = t * kBwdTile;
+    const int rows = n - n0 < kBwdTile ? (int)(n - n0) : kBwdTile;
+    const float* src = g + n0 * lf;
+    const int count = rows * lf;
+    __syncthreads();              // the last tile's rows (and sc) are done
+    if ((lf & 3) == 0) {          // each vector within one point's row
+      for (int q = threadIdx.x; 4 * q < count; q += kBwdThreads) {
+        const float4 v = __ldcs(reinterpret_cast<const float4*>(src) + q);
+        const int r = 4 * q / lf;
+        float* to = g_tile + r * gstride + (4 * q - r * lf);
+        to[0] = v.x; to[1] = v.y; to[2] = v.z; to[3] = v.w;
+      }
+    } else {
+      for (int e = threadIdx.x; e < count; e += kBwdThreads) {
+        const int r = e / lf;
+        g_tile[r * gstride + (e - r * lf)] = __ldcs(src + e);
+      }
+    }
+    __syncthreads();
+    for (int l = warp; l < nl; l += kBwdWarps) {
+      float gr[kF], wr[C], gz[kW];
+      bool live = false;
+#pragma unroll
+      for (int k = 0; k < kF; ++k) {
+        gr[k] = k < f && lane < rows ? g_tile[lane * gstride + l * f + k]
+                                     : 0.0f;
+        live |= gr[k] != 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < C; ++j) wr[j] = 0.0f;
+#pragma unroll
+      for (int d = 0; d < kW; ++d) gz[d] = 0.0f;
+      if (live) {
+        const int64_t row = (int64_t)l * n + n0 + lane;
+        load_row<C>(wr, w + row * C);
+        if constexpr (kAffine) {
+          float zr[kLd];
+          if constexpr (LD > 0) {
+            load_row<LD>(zr, zbar + row * LD);
+          } else {
+#pragma unroll
+            for (int d = 0; d < kLd; ++d)
+              zr[d] = d < ld ? __ldg(zbar + row * ld + d) : 0.0f;
+          }
+          float ws = 0.0f;
+#pragma unroll
+          for (int j = 0; j < C; ++j) ws += wr[j];
+#pragma unroll
+          for (int d = 0; d < kLd; ++d) {
+            float s = 0.0f;
+#pragma unroll
+            for (int k = 0; k < kF; ++k) {
+              s = fmaf(gr[k], sc[d * kF + k], s);
+              acc_s[d][k] = fmaf(zr[d], gr[k], acc_s[d][k]);
+            }
+            gz[d] = s;
+          }
+#pragma unroll
+          for (int k = 0; k < kF; ++k) acc_h[k] = fmaf(ws, gr[k], acc_h[k]);
+        } else {
+#pragma unroll
+          for (int d = 0; d < kW; ++d) gz[d] = gr[d];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < C; ++j) w_rows[warp][lane * C + j] = wr[j];
+#pragma unroll
+      for (int d = 0; d < kW; ++d) gz_rows[warp][lane * kW + d] = gz[d];
+      __syncwarp();
+      // the warp's rows of upd, [l, n0 .. n0 + rows, C, W]: contiguous
+      const int per = C * wd / 4;             // 16-byte vectors a row
+      float4* dst = reinterpret_cast<float4*>(
+          upd + ((int64_t)l * n + n0) * C * wd);
+      for (int q = lane; q < rows * per; q += 32) {
+        const int r = q / per, e0 = 4 * (q - r * per);
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = (e0 + j) / wd, d = e0 + j - c * wd;
+          v[j] = __fmul_rn(gz_rows[warp][r * kW + d],
+                           w_rows[warp][r * C + c]);
+        }
+        __stcs(dst + q, make_float4(v[0], v[1], v[2], v[3]));
+      }
+      __syncwarp();
+    }
+  }
+  if constexpr (kAffine) {
+    // the block's sums: each warp's lanes, then the warps in turn
+    const int np = ld * f + f;
+#pragma unroll
+    for (int d = 0; d < kLd; ++d) {
+#pragma unroll
+      for (int k = 0; k < kF; ++k) {
+        const float v = warp_sum(acc_s[d][k]);
+        if (lane == 0 && d < ld && k < f) sums[warp][d * f + k] = v;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kF; ++k) {
+      const float v = warp_sum(acc_h[k]);
+      if (lane == 0 && k < f) sums[warp][ld * f + k] = v;
+    }
+    __syncthreads();
+    const int cols = gridDim.x;
+    if (threadIdx.x < np) {
+      float s = sums[0][threadIdx.x];
+      for (int i = 1; i < kBwdWarps; ++i) s += sums[i][threadIdx.x];
+      partials[(int64_t)threadIdx.x * cols + blockIdx.x] = s;
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(done, 1u) == (unsigned)cols - 1;
+    __syncthreads();
+    if (!last) return;
+    // the last block: every column in block order
+    __threadfence();
+    for (int p = 0; p < np; ++p) {
+      float s = 0.0f;
+      for (int b = threadIdx.x; b < cols; b += kBwdThreads)
+        s += __ldcg(partials + (int64_t)p * cols + b);
+      s = warp_sum(s);
+      __syncthreads();            // the last sum's warp totals are read
+      if (lane == 0) sums[warp][0] = s;
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        float total = sums[0][0];
+        for (int i = 1; i < kBwdWarps; ++i) total += sums[i][0];
+        if (p < ld * f)
+          grad_scale[p] = total;
+        else
+          grad_shift[p - ld * f] = total;
+      }
+    }
+  }
+}
+
+template <int C, int F, int LD>
+int launch_backward(const void* g, const void* w, const void* zbar,
+                    const void* scale, long long n, int nl, int f, int ld,
+                    void* upd, void* partials, int partial_cols,
+                    void* grad_scale, void* grad_shift, cudaStream_t s) {
+  const auto kernel = hash_encode_backward_kernel<C, F, LD>;
+  const int lf = nl * f;
+  const int gstride = lf | 1;       // odd: the lanes' rows on other banks
+  const int smem = kBwdTile * gstride * (int)sizeof(float);
+  // past 48 KB with the static arrays only where this allows it
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kBwdThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  // one wave: every block resident, walking the tiles
+  long long blocks = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  const long long tiles = (n + kBwdTile - 1) / kBwdTile;
+  if (blocks > tiles) blocks = tiles;
+  unsigned int* done = nullptr;
+  if (LD != 0) {
+    if (blocks > partial_cols) blocks = partial_cols;
+    done = reinterpret_cast<unsigned int*>(
+        (float*)partials + (long long)(ld * f + f) * partial_cols);
+    err = cudaMemsetAsync(done, 0, sizeof(unsigned int), s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(unsigned)blocks, kBwdThreads, smem, s>>>(
+      (const float*)g, (const float*)w, (const float*)zbar,
+      (const float*)scale, (int64_t)n, nl, f, ld, gstride, (float*)upd,
+      (float*)partials, done, (float*)grad_scale, (float*)grad_shift);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // coords [n, dim] f32; table [rows, f] f32 (the feature columns) and ztab
@@ -429,4 +714,47 @@ extern "C" int hash_encode_forward(const void* coords, const void* table,
                            gidx, w, s);
   return launch_width<2>(coords, table, ztab, p, n, f, ld, feats, zbar, gidx,
                          w, s);
+}
+
+// Kernel E1(b).  g [n, num_lods, f] f32; w [num_lods, n, corners] f32;
+// on the affine path (ld > 0) zbar [num_lods, n, ld] and scale [ld, f]
+// f32, partials (at least (ld * f + f) * partial_cols + 1 floats of
+// scratch), grad_scale [ld, f] and grad_shift [f] f32, all five null with
+// ld = 0; upd [num_lods, n, corners, ld, or f with ld = 0] f32.  With
+// n = 0 it launches nothing and leaves grad_scale and grad_shift as they
+// are.
+extern "C" int hash_encode_backward(const void* g, const void* w,
+                                    const void* zbar, const void* scale,
+                                    long long n, int num_lods, int corners,
+                                    int f, int ld, void* upd, void* partials,
+                                    int partial_cols, void* grad_scale,
+                                    void* grad_shift, void* stream) {
+  const bool affine = ld > 0;
+  if (num_lods < 1 || num_lods > kMaxLods ||
+      (corners != 4 && corners != 8) || f < 1 || f > kMaxWidth || ld < 0 ||
+      ld > kMaxWidth || n < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;       // the caller zeroes the two sums
+  if ((zbar != nullptr) != affine || (scale != nullptr) != affine ||
+      (partials != nullptr) != affine || (grad_scale != nullptr) != affine ||
+      (grad_shift != nullptr) != affine || (affine && partial_cols < 1))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if ((uintptr_t)g % 16 || (uintptr_t)w % 16 || (uintptr_t)upd % 16 ||
+      (affine && (uintptr_t)zbar % vector_bytes(ld)))
+    return (int)cudaErrorMisalignedAddress;
+#define E1B_ARGS g, w, zbar, scale, n, num_lods, f, ld, upd, partials, \
+                 partial_cols, grad_scale, grad_shift, s
+  if (corners == 8) {
+    if (f == 4 && ld == 2) return launch_backward<8, 4, 2>(E1B_ARGS);
+    if (f == 4 && ld == 1) return launch_backward<8, 4, 1>(E1B_ARGS);
+    if (f == 4 && ld == 0) return launch_backward<8, 4, 0>(E1B_ARGS);
+    if (f == 2 && ld == 0) return launch_backward<8, 2, 0>(E1B_ARGS);
+    if (ld == 0) return launch_backward<8, 0, 0>(E1B_ARGS);
+    return launch_backward<8, 0, -1>(E1B_ARGS);
+  }
+  if (f == 1 && ld == 1) return launch_backward<4, 1, 1>(E1B_ARGS);
+  if (ld == 0) return launch_backward<4, 0, 0>(E1B_ARGS);
+  return launch_backward<4, 0, -1>(E1B_ARGS);
+#undef E1B_ARGS
 }

@@ -23,12 +23,18 @@ renders, validation).  E1 replaces no Pallas kernel: the JAX package's
 flat forward is a gather left to XLA.  On the CPU the forward is
 :func:`encode_plain`, the PyTorch version E1 is held to: E1 takes the
 orders of PyTorch's CUDA product and sum, so on the card its corner rows,
-weights and features equal :func:`encode_plain`'s bit for bit.  The
-backward scatters into the concatenated ``[total_size, width]`` table
-gradient with ONE launch of the scatter kernel (``ops/scatter.py``), every
-LOD's indices offset by its ``lod_first_idx``.  Every encode's backward
-runs in the range ``backward/encode``, on autograd's thread, so the
-profiler gives it the kernels it launches.
+weights and features equal :func:`encode_plain`'s bit for bit.  Their
+backward is :func:`encode_backward`: on the card ONE launch of kernel E1(b)
+(``csrc/hash_encode.cu``) over every LOD writes the scatter's rows ``upd``
+from the features' gradient and the saved ``w`` (and, on the affine path,
+reads ``zbar`` and writes ``grad_scale`` and ``grad_shift``), then ONE
+launch of the scatter kernel (``ops/scatter.py``) adds the rows into the
+concatenated ``[total_size, width]`` table gradient, every LOD's indices
+offset by its ``lod_first_idx``.  On the CPU it is
+:func:`encode_backward_plain`, the eager formulas E1(b) is held to.  Every
+encode's backward runs in the range ``backward/encode``, on autograd's
+thread, so the profiler gives it the kernels it launches (E1(b) under an
+op record of its own, ``hash_encode_backward``).
 
 The ``'paged'`` layout (``hash_layout='paged'``) places a hashed LOD's
 entries page by page: ``entry = page(cell) * E + fold_hash(xor_hash, E)``,
@@ -363,6 +369,128 @@ def encode_forward(coords: torch.Tensor, table: torch.Tensor,
         lambda: (_launch_encode(coords, table, spec, lods, zt, save), 1))
 
 
+def backward_updates_plain(g: torch.Tensor, w: torch.Tensor, zbar=None,
+                           scale=None):
+    """Plain PyTorch version of kernel E1(b): from the features' gradient
+    ``g`` [N, L, F] and the forward's corner weights ``w`` [L, N, C], the
+    scatter's rows ``upd`` [L, N, C, W] (W = F, or ld through ``scale``
+    [ld, F]), and on the affine path (``zbar`` [L, N, ld] and ``scale``
+    given) ``grad_scale`` [ld, F] and ``grad_shift`` [1, F] (None
+    without)."""
+    g = g.float()                                         # [N, L, F]
+    gz = g if scale is None else g @ scale.float().t()    # [N, L, W]
+    upd = gz.permute(1, 0, 2)[:, :, None, :] * w[..., None]
+    if scale is None:
+        return upd, None, None
+    # zbar[l, n] = sum_c w * z_c: the sum over corners is taken
+    return (upd, torch.einsum('lnd,nlf->df', zbar, g),
+            torch.einsum('lnc,nlf->f', w, g)[None])
+
+
+def encode_backward_plain(g, gidx, w, zbar, scale, total_size: int):
+    """The flat encode's backward in plain PyTorch: the table's gradient
+    [total_size, W], the rows of :func:`backward_updates_plain` added at
+    the corner rows ``gidx`` [L, N, C], then ``grad_scale`` and
+    ``grad_shift`` (None without ``scale``)."""
+    upd, grad_scale, grad_shift = backward_updates_plain(g, w, zbar, scale)
+    grad = scatter_add(gidx.reshape(-1), upd.reshape(-1, upd.shape[-1]),
+                       total_size)
+    return grad, grad_scale, grad_shift
+
+
+MAX_WIDTH = 8                 # kernel E1(b)'s largest F and ld (kMaxWidth)
+
+_ENCODE_BACKWARD = launch.Entry('hash_encode', 'hash_encode_backward',
+                                'ppppqiiiippipp')
+
+
+@functools.lru_cache(maxsize=None)
+def _partial_columns(device: torch.device) -> int:
+    """Columns of E1(b)'s scratch, one a block: its grid is one wave, at
+    most 32 blocks an SM."""
+    return torch.cuda.get_device_properties(device).multi_processor_count * 32
+
+
+def _launch_encode_backward(g, w, zbar=None, scale=None):
+    """Launch ``hash_encode_backward`` (kernel E1(b)) on the current stream
+    under an op record of its own; the outputs of
+    :func:`backward_updates_plain`."""
+    n, num, f = g.shape
+    c = w.shape[2]
+    ld = 0 if scale is None else scale.shape[0]
+    if c not in (4, 8) or not 1 <= num <= MAX_LODS or f > MAX_WIDTH \
+            or ld > MAX_WIDTH:
+        raise ValueError(
+            f'kernel E1(b) takes 4 or 8 corners, 1 to {MAX_LODS} LODs and '
+            f'F and ld up to {MAX_WIDTH}, got C {c}, L {num}, F {f}, ld {ld}')
+    dev = g.device
+    g, w = launch.aligned_f32(g), launch.aligned_f32(w)
+    upd = torch.empty((num, n, c, ld or f), dtype=torch.float32, device=dev)
+    partials = grad_scale = grad_shift = None
+    cols = 0
+    if ld:
+        zbar, scale = launch.aligned_f32(zbar), scale.float().contiguous()
+        cols = _partial_columns(dev)
+        partials = torch.empty(((ld + 1) * f * cols + 1,),
+                               dtype=torch.float32, device=dev)
+        # with no points the kernel writes nothing: the sums are zero
+        alloc = torch.empty if n else torch.zeros
+        grad_scale = alloc((ld, f), dtype=torch.float32, device=dev)
+        grad_shift = alloc((1, f), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    # a profile gives a kernel launched here to the innermost op record on
+    # this thread: without one of its own, E1(b) would fall to the autograd
+    # node around ``backward/encode``
+    with torch._C._profiler._RecordFunctionFast('hash_encode_backward'):
+        _ENCODE_BACKWARD(dev, g.data_ptr(), w.data_ptr(), ptr(zbar),
+                         ptr(scale), n, num, c, f, ld, upd.data_ptr(),
+                         ptr(partials), cols, ptr(grad_scale),
+                         ptr(grad_shift))
+    return upd, grad_scale, grad_shift
+
+
+def encode_backward(g: torch.Tensor, gidx: torch.Tensor, w: torch.Tensor,
+                    zbar, scale, total_size: int):
+    """The flat encode's backward from the features' gradient ``g``
+    [N, L, F] and what the forward saved: the corner rows ``gidx`` and
+    weights ``w`` [L, N, C] and, on the affine path, ``zbar`` [L, N, ld]
+    with ``scale`` [ld, F].  Returns (the table's gradient
+    [total_size, W], grad_scale [ld, F], grad_shift [1, F]), W = F and
+    both None without ``scale``.
+
+    CPU tensors take :func:`encode_backward_plain`; CUDA tensors launch
+    kernel E1(b) once for all LODs (counted as
+    ``launches/hash_encode_backward``), then the scatter kernel on its
+    rows."""
+    n, num, f = g.shape
+    affine = scale is not None
+    if (tuple(w.shape[:2]) != (num, n) or gidx.shape != w.shape
+            or affine != (zbar is not None)
+            or (affine and (tuple(zbar.shape) != (num, n, scale.shape[0])
+                            or scale.shape[1] != f))):
+        raise ValueError(
+            f'encode_backward: g [N, L, F], gidx and w [L, N, C], zbar '
+            f'[L, N, ld] and scale [ld, F] expected, got {tuple(g.shape)}, '
+            f'{tuple(gidx.shape)}, {tuple(w.shape)}, '
+            f'{None if zbar is None else tuple(zbar.shape)}, '
+            f'{None if scale is None else tuple(scale.shape)}')
+
+    def kernel():
+        upd, grad_scale, grad_shift = _launch_encode_backward(g, w, zbar,
+                                                              scale)
+        grad = scatter_add(gidx.reshape(-1), upd.reshape(-1, upd.shape[-1]),
+                           total_size)
+        return (grad, grad_scale, grad_shift), 1
+
+    return launch.dispatch(
+        'hash_encode_backward', g.device,
+        lambda: encode_backward_plain(g, gidx, w, zbar, scale, total_size),
+        kernel)
+
+
 class _HashEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, coords, codebook, spec):
@@ -379,14 +507,10 @@ class _HashEncode(torch.autograd.Function):
             # a gradient taken for the coordinates alone: none flows there
             return None, None, None
         gidx, w = ctx.saved_tensors
-        spec = ctx.spec
         with record_function('backward/encode'):
-            g = g.float()                                 # [N, L, F]
-            f = g.shape[-1]
-            upd = g.permute(1, 0, 2)[:, :, None, :] * w[..., None]
-            grad = scatter_add(gidx.reshape(-1), upd.reshape(-1, f),
-                               spec.total_size).to(ctx.cb_dtype)
-        return None, grad, None
+            grad, _, _ = encode_backward(g, gidx, w, None, None,
+                                         ctx.spec.total_size)
+        return None, grad.to(ctx.cb_dtype), None
 
 
 def hash_encode(coords: torch.Tensor, codebook: torch.Tensor,
@@ -413,20 +537,12 @@ class _HashEncodeAffine(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         gidx, w, zbar, scale = ctx.saved_tensors
-        spec = ctx.spec
         z_dtype, scale_dtype, shift_dtype = ctx.dtypes
         with record_function('backward/encode'):
-            g = g.float()                                 # [N, L, F]
-            ld = scale.shape[0]
-            gz = (g @ scale.float().t()).permute(1, 0, 2)  # [L, N, ld]
-            upd = gz[:, :, None, :] * w[..., None]        # [L, N, C, ld]
-            grad_z = scatter_add(gidx.reshape(-1), upd.reshape(-1, ld),
-                                 spec.total_size)
-            # zbar[l, n] = sum_c w * z_c: the sum over corners is taken
-            grad_scale = torch.einsum('lnd,nlf->df', zbar, g)
-            grad_shift = torch.einsum('lnc,nlf->f', w, g)[None]
-            return (None, grad_z.to(z_dtype), grad_scale.to(scale_dtype),
-                    grad_shift.to(shift_dtype), None, None)
+            grad_z, grad_scale, grad_shift = encode_backward(
+                g, gidx, w, zbar, scale, ctx.spec.total_size)
+        return (None, grad_z.to(z_dtype), grad_scale.to(scale_dtype),
+                grad_shift.to(shift_dtype), None, None)
 
 
 def hash_encode_affine(coords: torch.Tensor, z: torch.Tensor,

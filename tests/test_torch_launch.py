@@ -167,9 +167,10 @@ _C_NAMES = {ctypes.c_void_p: 'p', ctypes.c_int: 'int',
 
 
 @pytest.mark.parametrize('entry', [
-    hashgrid._ENCODE, scatter._SCATTER, scatter._GATHER, paged_hash._GATHER,
-    paged_hash._SCATTER, occupancy._DDA, codebook._FORWARD,
-    codebook._BACKWARD], ids=lambda e: e.symbol)
+    hashgrid._ENCODE, hashgrid._ENCODE_BACKWARD, scatter._SCATTER,
+    scatter._GATHER, paged_hash._GATHER, paged_hash._SCATTER,
+    occupancy._DDA, codebook._FORWARD, codebook._BACKWARD],
+    ids=lambda e: e.symbol)
 def test_entry_matches_its_c_prototype(entry):
     got = ['p' if issubclass(t, ctypes._Pointer) else _C_NAMES[t]
            for t in entry.argtypes]
