@@ -145,7 +145,11 @@ Phases, each of which must pass (exit code 1 otherwise):
                backward on those logits (4 LODs x 4,194,304 samples, D 16,
                F 5), against the plain twin (features and the logits'
                gradients 1e-5, the dictionaries' 1e-4 of the largest
-               value), each timed beside it with its bound;
+               value), each timed beside it with its bound; kernel Q1,
+               the octree grids' corner query, on the same 4 LODs x
+               4,194,304 samples against its plain twin (corner rows,
+               weights and valid flags bit for bit), timed beside it with
+               its bound;
                then the app with configs/nerf_octree.yaml,
                nerf_codebook.yaml, nerf_triplanar.yaml (with --max-samples
                1048576, its one cut) and nerf_hash.yaml at full width on
@@ -156,7 +160,8 @@ Phases, each of which must pass (exit code 1 otherwise):
                its build time printed; each run's step time, device busy
                time, idle share, stream syncs a step, peak memory and size
                report; B1 every step on every path, R1 on the octree,
-               codebook and triplanar paths, V1 on the triplanar path;
+               codebook and triplanar paths, Q1 on the octree and codebook
+               paths (and octree_rtmv's), V1 on the triplanar path;
 21. sdf     -- the SDF demo (``shacira_tpu_torch.apps.sdf_demo``, the
                counterpart of tools/run_sdf_demo.py) at its full width:
                B1 on a real step's NeuralSDF hash backward (163,840 rows of
@@ -1289,7 +1294,7 @@ AFTER_PRUNE = 4           # training steps past the prune
 LAUNCHED = ('scatter_add', 'segment_sum', 'paged_gather',
             'paged_gather_occupancy', 'paged_scatter', 'voxel_crossings',
             'hash_encode', 'hash_encode_backward', 'gather_rows',
-            'codebook_mix', 'codebook_mix_backward')
+            'codebook_mix', 'codebook_mix_backward', 'octree_query')
 
 
 def _launch_counts():
@@ -3119,6 +3124,60 @@ def check_codebook_mix(dev, reps: int = 5) -> dict:
     return rows
 
 
+def query_bound_ms(n: int, lods: int) -> float:
+    """Least time of Q1 over ``n`` points and ``lods`` LODs: per point
+    and LOD its 32 bytes of corner rows, 32 of weights and 1 of valid
+    written, one 32-byte trinket row and the matched 8-byte code read; the
+    12 bytes of coordinates read once, at 3.35 TB/s."""
+    return (n * lods * (32 + 32 + 1 + 32 + 8) + n * 12) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def check_octree_query(dev, reps: int = 5) -> dict:
+    """Kernel Q1 (through its launch helper) against its plain twin at
+    the ``codebook.object`` cell's shape: the dense octree of LODs 5-8 and
+    the 4096 x 1024 samples of the dense 'ray' march in (ray, depth)
+    order; corner rows, weights and valid flags bit for bit, both timed."""
+    import torch
+    from shacira_tpu_torch.models.grids import octree_grid as og
+    from shacira_tpu_torch.ops import spc
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    pts, _ = ray_ordered_points(dev, gen, n_rays=4096, steps=1024,
+                                budget=4096 * 1024)
+    cfg = og.OctreeGridConfig(feature_dim=5, base_lod=5, num_lods=4)
+    tables = og.OctreeStructure.make_dense(cfg, device=dev).tables()
+    lods = cfg.active_lods
+    got = spc._launch_query(pts, tables, lods)
+    want = spc.octree_corners_plain(pts, tables, lods)
+    torch.cuda.synchronize()
+    identical = all(torch.equal(a, b) for g, w in zip(got, want)
+                    for a, b in zip(g, w))
+    hits = [float(v.float().mean()) for _, _, v in want]
+    del got, want
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: spc._launch_query(pts, tables, lods), reps)
+    plain_ms = time_ms(lambda: spc.octree_corners_plain(pts, tables, lods),
+                       reps)
+    b_ms = query_bound_ms(pts.shape[0], len(lods))
+    log(f'  octree_query: lods={list(lods)} samples={pts.shape[0]} '
+        f'hit share {hits} bit_identical={identical} kernel {ms:.4f} ms, '
+        f'plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms (bytes), '
+        f'{100 * b_ms / ms:.2f} % of it')
+    if not identical:
+        raise AssertionError('kernel Q1 differs from the plain twin')
+    return {'octree_query': {
+        'max_abs_err': 0.0, 'max_rel_err': 0.0, 'bit_identical': True,
+        'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
+        'bound_by': 'bytes', 'library_ms': None,
+        'use': ('the octree grids\' corner query, 4 LODs (5-8) x '
+                '4,194,304 samples of the dense octree (JAX: searchsorted '
+                'and take, left to XLA, shacira_tpu/ops/spc.py:125, :155; '
+                'shacira_tpu/models/grids/octree_grid.py:132)'),
+        'source': 'shacira_tpu_torch/csrc/octree_query.cu',
+        'replaces': 'none (the XLA searchsorted and take)'}}
+
+
 def _drive_backbone(dev, name, argv, data, n_steps):
     """The app's ``main`` on ``argv`` (training across the prunes), then
     ``--resume true --valid-only``, whose PSNR must equal the trained
@@ -3233,10 +3292,10 @@ def _drive_backbone(dev, name, argv, data, n_steps):
 
 
 def phase_backbones(dev, rows) -> dict:
-    """B1 and R1 at the backbone shapes (their rows added to ``rows``),
-    then ``apps/train_nerf.main`` with each of ``BACKBONE_RUNS`` at the
-    YAML's full width on the Blender-format scene of
-    ``tools/make_synthetic_data.write_nerf_scene(**BACKBONE_SCENE)``; the
+    """B1, R1, M1 / M1(b) and Q1 at the backbone shapes (their rows added
+    to ``rows``), then ``apps/train_nerf.main`` with each of
+    ``BACKBONE_RUNS`` at the YAML's full width on the Blender-format scene
+    of ``tools/make_synthetic_data.write_nerf_scene(**BACKBONE_SCENE)``; the
     dense octree of LODs 5-8 built once for NGLOD and VQAD.  Returns the
     launches of each path."""
     import tempfile
@@ -3253,6 +3312,9 @@ def phase_backbones(dev, rows) -> dict:
         rows.update(phase_gather_kernels(dev))
         log('phase codebook_kernels:')
         rows.update(check_codebook_mix(dev))
+        torch.cuda.empty_cache()
+        log('phase octree_query_kernel:')
+        rows.update(check_octree_query(dev))
         torch.cuda.empty_cache()
         log(f'  structure builds (s): {json.dumps(seconds)}')
         with tempfile.TemporaryDirectory() as tmp:
@@ -4242,6 +4304,7 @@ def main(argv=None) -> int:
                ('gather_rows_triplanar', 'gather_rows', 'triplanar'),
                ('codebook_mix', 'codebook_mix', 'codebook'),
                ('codebook_mix_backward', 'codebook_mix_backward', 'codebook'),
+               ('octree_query', 'octree_query', 'codebook'),
                ('segment_sum_extras', 'segment_sum', 'viewer_extras'),
                ('segment_sum_extras_frame', 'segment_sum', 'viewer_extras'))
     counts = ('updates', 'atomics', 'distinct_per_tile',
@@ -4288,6 +4351,10 @@ def main(argv=None) -> int:
     for path in ('octree', 'codebook', 'triplanar', 'octree_rtmv'):
         if launches[path]['gather_rows'] <= 0:
             missing.append(f'gather_rows ({path} path)')
+    # and Q1, the octree grids' corner query, in their forward
+    for path in ('octree', 'codebook', 'octree_rtmv'):
+        if launches[path]['octree_query'] <= 0:
+            missing.append(f'octree_query ({path} path)')
     # and VQAD M1 and M1(b) in its training steps
     for wrapper in ('codebook_mix', 'codebook_mix_backward'):
         if launches['codebook'][wrapper] <= 0:

@@ -8,7 +8,9 @@ one-hot mix while training, an argmax lookup in eval mode).
 
 The structure (sorted morton codes, trinkets) is built once with torch on
 the device it is asked for and stays fixed; only the feature tables are
-parameters.  Every LOD's corner rows are gathered with ONE
+parameters.  Every LOD's cells, morton search, corner rows and trilinear
+weights come from ONE :func:`ops.spc.octree_corners`, on the card one
+launch of kernel Q1.  Every LOD's corner rows are gathered with ONE
 :func:`ops.scatter.gather_rows`, whose forward is one launch of kernel R1
 and whose backward is one launch of kernel B1 over the tables of all
 LODs.
@@ -19,7 +21,8 @@ codebook_mix`: on the card one launch of kernel M1 over every LOD forward
 and one of M1(b) backward.
 
 Spans (``record_function``, inside the field's ``field/encode``):
-``field/octree_query`` (cells, morton search, trinkets and weights),
+``field/octree_query`` (cells, morton search, trinkets and weights; Q1's
+launch under the op record ``octree_query_launch``),
 ``field/gather`` (the corner rows' gather) and, for VQAD,
 ``field/codebook_mix`` (training: the mix and the blend of every LOD;
 eval: each LOD's argmax lookup).  The mix's backward is the range
@@ -143,16 +146,6 @@ def octree_grid_init(generator: torch.Generator, cfg: OctreeGridConfig,
         for lod in cfg.active_lods]}
 
 
-def _lod_corners(codes, trinkets, coords, lod: int):
-    """One LOD's corner rows [N, 8] int32, trilinear weights [N, 8] and
-    whether each point's cell is in the octree [N]."""
-    cells = torch.floor((coords * 0.5 + 0.5) * (2 ** lod)).to(torch.int32)
-    cells = torch.clamp(cells, 0, 2 ** lod - 1)
-    pidx = spc.query_cells(codes, cells)
-    corner_idx = trinkets[torch.clamp(pidx, min=0)]
-    return corner_idx, spc.trilinear_coeffs(coords, cells, lod), pidx >= 0
-
-
 def _blend(cf, w, valid):
     """Trilinear sum of corner values [N, 8, F]; zeros outside the
     octree."""
@@ -161,11 +154,12 @@ def _blend(cf, w, valid):
 
 
 def _corners(cfg: OctreeGridConfig, structure, coords):
-    tables = _as_tables(structure)
+    """Each LOD's (corner rows, trilinear weights, valid) of the points
+    ``coords`` [N, 3]: :func:`spc.octree_corners`, on the card one launch
+    of kernel Q1 over every LOD."""
     with record_function('field/octree_query'):
-        return [_lod_corners(tables['codes'][i], tables['trinkets'][i],
-                             coords, lod)
-                for i, lod in enumerate(cfg.active_lods)]
+        return spc.octree_corners(coords, _as_tables(structure),
+                                  cfg.active_lods)
 
 
 def _gather(tables, parts):

@@ -11,13 +11,24 @@ corners and trinkets are equal to the JAX package's).
 Morton codes are int64 throughout (JAX uses uint32 on the device and uint64
 on the host): codes of levels <= 10 stay below 2^30, and
 ``torch.searchsorted`` needs the sorted codes and the queries in one dtype.
+
+The octree grids' corner query over every active LOD is
+:func:`octree_corners`: on the CPU its plain twin
+:func:`octree_corners_plain` (:func:`query_cells`, the trinkets' gather and
+:func:`trilinear_coeffs` a LOD at a time), on the card ONE launch of kernel
+Q1 (``csrc/octree_query.cu``) with the same outputs bit for bit, counted as
+``launches/octree_query`` and run under the op record
+``octree_query_launch``.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import List, Tuple
 
 import numpy as np
 import torch
+
+from shacira_tpu_torch.kernels import launch
 
 # corner j of a cell sits at offset ((j >> 2) & 1, (j >> 1) & 1, j & 1):
 # x is the high bit, as in the hash-grid kernels
@@ -187,3 +198,118 @@ def total_variation(features: torch.Tensor, trinkets: torch.Tensor
     dz = f[:, [1, 3, 5, 7]] - f[:, [0, 2, 4, 6]]
     return (torch.mean(dx ** 2) + torch.mean(dy ** 2)
             + torch.mean(dz ** 2)) / 3.0
+
+
+# ---------------------------------------------------------------------------
+# The octree grids' corner query (kernel Q1)
+# ---------------------------------------------------------------------------
+
+MAX_QUERY_LODS = 16     # kernel Q1's kMaxQueryLods
+MAX_QUERY_LOD = 10      # kMaxQueryLod: 10 bits an axis, as spread_bits keeps
+
+
+def lod_corners_plain(codes: torch.Tensor, trinkets: torch.Tensor,
+                      coords: torch.Tensor, lod: int):
+    """One LOD of :func:`octree_corners_plain`: the corner rows [N, 8]
+    int32 of each point's cell, its trilinear weights [N, 8] and whether
+    the cell is in the octree [N]."""
+    cells = torch.floor((coords * 0.5 + 0.5) * (2 ** lod)).to(torch.int32)
+    cells = torch.clamp(cells, 0, 2 ** lod - 1)
+    pidx = query_cells(codes, cells)
+    corner_idx = trinkets[torch.clamp(pidx, min=0)]
+    return corner_idx, trilinear_coeffs(coords, cells, lod), pidx >= 0
+
+
+def octree_corners_plain(coords: torch.Tensor, tables: dict, lods) -> list:
+    """Plain PyTorch version of kernel Q1: :func:`lod_corners_plain` for
+    each LOD of ``lods``, with its ``tables['codes']`` and
+    ``tables['trinkets']``."""
+    return [lod_corners_plain(codes, trinkets, coords, lod)
+            for codes, trinkets, lod in zip(tables['codes'],
+                                            tables['trinkets'], lods)]
+
+
+class _QueryLod(ctypes.Structure):
+    """``struct QueryLod`` of ``csrc/octree_query.cu``: one LOD of kernel
+    Q1."""
+    _fields_ = [('codes', ctypes.c_void_p), ('trinkets', ctypes.c_void_p),
+                ('corner_idx', ctypes.c_void_p), ('w', ctypes.c_void_p),
+                ('valid', ctypes.c_void_p), ('m', ctypes.c_longlong),
+                ('lod', ctypes.c_int)]
+
+
+_QUERY = launch.Entry('octree_query', 'octree_query_forward', 'pq',
+                      _QueryLod, 'i')
+
+
+def _launch_query(coords: torch.Tensor, tables: dict, lods,
+                  lib=None) -> list:
+    """Launch ``octree_query_forward`` of ``lib`` (default: kernel Q1
+    built from ``csrc/octree_query.cu``) on the current stream over every
+    LOD; returns each LOD's (corner_idx, w, valid)."""
+    lods = [int(l) for l in lods]
+    codes, trinkets = list(tables['codes']), list(tables['trinkets'])
+    if not lods or len({len(lods), len(codes), len(trinkets)}) != 1:
+        raise ValueError(f'octree_corners: {len(lods)} LODs, {len(codes)} '
+                         f'code tables and {len(trinkets)} trinket tables')
+    if len(lods) > MAX_QUERY_LODS or not all(
+            0 <= l <= MAX_QUERY_LOD for l in lods):
+        raise ValueError(f'octree_corners: unsupported LODs {lods} on the '
+                         f'card (up to {MAX_QUERY_LODS} of 0 to '
+                         f'{MAX_QUERY_LOD})')
+    if (coords.dim() != 2 or coords.shape[1] != 3
+            or coords.dtype != torch.float32):
+        raise ValueError('octree_corners: f32 coordinates [N, 3] expected, '
+                         f'got {coords.dtype} {tuple(coords.shape)}')
+    if coords.requires_grad and torch.is_grad_enabled():
+        raise ValueError('octree_corners: no gradient flows to the '
+                         'coordinates on the card')
+    dev = coords.device
+    for c, t in zip(codes, trinkets):
+        m = c.shape[0] if c.dim() == 1 else 0
+        if (c.dtype != torch.int64 or m < 1
+                or tuple(t.shape) != (m, 8) or t.dtype != torch.int32):
+            raise ValueError(
+                'octree_corners: sorted int64 codes [M] and int32 trinkets '
+                f'[M, 8], M >= 1, expected, got {c.dtype} '
+                f'{tuple(c.shape)} and {t.dtype} {tuple(t.shape)}')
+        if c.device != dev or t.device != dev:
+            raise ValueError('octree_corners: coordinates and tables on one '
+                             'device expected')
+    coords = coords.contiguous()
+    codes = [c.contiguous() for c in codes]
+    trinkets = [t.contiguous() for t in trinkets]
+    n = coords.shape[0]
+    outs = [(torch.empty((n, 8), dtype=torch.int32, device=dev),
+             torch.empty((n, 8), dtype=torch.float32, device=dev),
+             torch.empty((n,), dtype=torch.bool, device=dev))
+            for _ in lods]
+    arr = (_QueryLod * len(lods))(*[
+        _QueryLod(c.data_ptr(), t.data_ptr(), ci.data_ptr(), w.data_ptr(),
+                  v.data_ptr(), c.shape[0], lod)
+        for c, t, (ci, w, v), lod in zip(codes, trinkets, outs, lods)])
+    # a profile gives a ctypes launch to the innermost op record on its
+    # thread, which a record_function range is not: without one of its
+    # own, Q1 would fall outside 'field/octree_query'
+    with torch._C._profiler._RecordFunctionFast('octree_query_launch'):
+        _QUERY(dev, coords.data_ptr(), n, arr, len(lods), lib=lib)
+    return outs
+
+
+def octree_corners(coords: torch.Tensor, tables: dict, lods) -> list:
+    """Each LOD's (corner rows [N, 8] int32, trilinear weights [N, 8] f32,
+    valid [N] bool) of the points ``coords`` [N, 3] in [-1, 1]^3 (outside
+    it, the nearest cell), per LOD of ``lods`` with its sorted codes
+    ``tables['codes']`` and trinkets ``tables['trinkets']`` (an
+    ``OctreeStructure.tables()``).  A point whose cell is not in the
+    octree takes trinket row 0 and ``valid`` False.
+
+    CPU tensors take :func:`octree_corners_plain`; CUDA tensors ONE launch
+    of kernel Q1 over every LOD, equal to it bit for bit (counted as
+    ``launches/octree_query``).  On the card no gradient flows to the
+    coordinates: they may not require one."""
+    return launch.dispatch(
+        'octree_query', coords.device,
+        lambda: octree_corners_plain(coords, tables, lods),
+        lambda: (_launch_query(coords, tables, lods),
+                 1 if coords.shape[0] else 0))

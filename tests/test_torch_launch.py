@@ -16,7 +16,7 @@ torch = pytest.importorskip('torch')
 from shacira_tpu_torch.accel import occupancy  # noqa: E402
 from shacira_tpu_torch.kernels import build, launch  # noqa: E402
 from shacira_tpu_torch.ops import (  # noqa: E402
-    codebook, hashgrid, paged_hash, scatter)
+    codebook, hashgrid, paged_hash, scatter, spc)
 from shacira_tpu_torch.utils import perf  # noqa: E402
 
 STREAM = 0x5eed
@@ -169,7 +169,7 @@ _C_NAMES = {ctypes.c_void_p: 'p', ctypes.c_int: 'int',
 @pytest.mark.parametrize('entry', [
     hashgrid._ENCODE, hashgrid._ENCODE_BACKWARD, scatter._SCATTER,
     scatter._GATHER, paged_hash._GATHER, paged_hash._SCATTER,
-    occupancy._DDA, codebook._FORWARD, codebook._BACKWARD],
+    occupancy._DDA, codebook._FORWARD, codebook._BACKWARD, spc._QUERY],
     ids=lambda e: e.symbol)
 def test_entry_matches_its_c_prototype(entry):
     got = ['p' if issubclass(t, ctypes._Pointer) else _C_NAMES[t]
